@@ -1,0 +1,698 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one
+NVIDIA H100.
+
+    python3 chip_smoke.py            # build, kernel checks, full-width serve
+    python3 chip_smoke.py --quick    # build and kernel checks only
+
+Run from the root of a checkout. Phases:
+
+1. build: ``nvcc`` compiles every ``src/repro_torch/csrc/*.cu`` for sm_90a
+   (one process per source, started together) and prints what ptxas
+   reports per kernel.
+2. kernels: each CUDA kernel at the main path's shapes (Hq 32, Hkv 8,
+   hd 128, page 16) against its plain PyTorch version in float32 on the
+   same inputs: the ragged kernel on a mixed batch (two prefill chunks with
+   history, four decode rows, pad tiles) with bf16, fp16 and int8 pages
+   and the paged decode kernel at batch 4 with kv_len up to 1,024, each
+   output row (token, head) held to 2^-7 of its largest |value| plus 1e-4
+   (bf16 output rounding is at most 2^-8 of it); and an f32 case of each
+   at hd 16 held to 1e-5 with TF32 off. Times (CUDA events, median of repeats, L2
+   flushed before each) of the kernel, its plain version and one PyTorch
+   library call for the same function (SDPA on gathered K/V, never called
+   by the port), beside the least time the card could take.
+3. serve: full-depth, full-width granite-3-8b (40 layers, d 4096, bf16) on
+   random weights from a seeded generator. A ``ServingEndpoint`` over a
+   2-stage paged engine serves 4 requests (prefill_chunk 256, max_new 32),
+   is consolidated to one stage after a few decode steps and runs to the
+   end; its streams must equal a 1-stage engine's. Then a fused int8-KV
+   engine serves the same requests. Each path's kernel launches are
+   counted from 0 and must all be > 0. Where an int8 stream leaves the
+   bf16 one, the logits at its first diverging token are taken from one
+   prefill of the shared context with bf16 pages, with int8 pages, and
+   with each page dtype through the plain ragged version: the bf16 top-2
+   margin there must be within how far int8 pages move the logits, and
+   the int8 kernel's logits must stray from its plain version's no more
+   than twice as far as the bf16 kernel's from its own. In the 1-stage and int8 runs, four
+   decode steps run under ``torch.profiler`` (device time per step, the
+   kernels that take it) and are left out of the step timings.
+
+Any failed check raises, and the script exits nonzero without a result
+line. On success the second-to-last line is the ``kernels`` JSON (the
+ported kernels; the TPU kernels still to port under ``not_ported``) and
+the last line is ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import re
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+HBM_BYTES_PER_S = 3.35e12         # H100 SXM HBM3 (data sheet)
+BF16_FLOPS = 989e12               # H100 SXM dense bf16 tensor core
+F32_FLOPS = 67e12                 # H100 SXM float32, outside tensor cores
+
+Hq, HKV, HD, BS = 32, 8, 128, 16  # granite-3-8b attention at full width
+PROFILE_AT = 16                   # a decode step of the serve phase
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+# ---------------------------------------------------------------------------
+# timing
+# ---------------------------------------------------------------------------
+
+
+def time_ms(torch, fn, reps=20, warmup=3, flush=None):
+    """Median of ``reps`` CUDA-event timings of ``fn()``, L2 flushed before
+    each (``flush`` is a >50 MB buffer the flush overwrites)."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        if flush is not None:
+            flush.zero_()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def bound_ms(n_bytes, flops, peak):
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels at the main path's shapes
+# ---------------------------------------------------------------------------
+
+
+def ragged_batch(torch, hq, hkv, hd, bs, dtype, seed):
+    """A mixed ragged batch in the runner's layout: two prefill chunks with
+    history, four decode rows, one pad tile; each request's pages at
+    scattered ids. Returns (q, k, v, tables, row, pos, spans)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    # (history rows, new tokens) per request
+    specs = [(300, 256), (100, 203), (1023, 1), (776, 1), (299, 1), (0, 1)]
+    nb = max(-(-(h + n) // bs) for h, n in specs)
+    n_pages = len(specs) * nb + 1                          # + trash page
+    perm = torch.randperm(n_pages - 1, generator=g, device="cuda")
+    tables = perm.reshape(len(specs), nb).to(torch.int32)
+    rows, poss = [], []
+    for r, (h, n) in enumerate(specs):
+        na = -(-n // 8) * 8
+        rows += [r] * na
+        poss += list(range(h, h + n)) + [-1] * (na - n)
+    rows += [0] * 8                                        # a pad tile
+    poss += [-1] * 8
+    t = len(rows)
+    k = torch.randn((n_pages, bs, hkv, hd), generator=g, device="cuda")
+    v = torch.randn((n_pages, bs, hkv, hd), generator=g, device="cuda")
+    q = torch.randn((t, hq, hd), generator=g, device="cuda")
+    row = torch.tensor(rows, dtype=torch.int32, device="cuda")
+    pos = torch.tensor(poss, dtype=torch.int32, device="cuda")
+    return q.to(dtype), k, v, tables, row, pos
+
+
+def ragged_cost(q, pages_bytes_per_row, tables, row, pos, hkv, hd):
+    """Bytes the function must move (q, the K/V rows its tokens need, each
+    once, the output) and its operations (QK and PV)."""
+    t, hq, _ = q.shape
+    need = {}
+    for r, p in zip(row.tolist(), pos.tolist()):
+        if p >= 0:
+            need[r] = max(need.get(r, 0), p + 1)
+    kv_rows = sum(need.values())
+    n_bytes = (2 * q.numel() * q.element_size()
+               + kv_rows * pages_bytes_per_row
+               + (tables.numel() + row.numel() + pos.numel()) * 4)
+    flops = sum(4 * hq * hd * (p + 1) for p in pos.tolist() if p >= 0)
+    return n_bytes, flops
+
+
+def sdpa_ragged(torch, q, k, v, tables, row, pos):
+    """The library yardstick: one SDPA call over the whole pool with a
+    boolean mask built from the tables (the mask and layouts are made
+    before timing). Returns a zero-argument callable."""
+    import torch.nn.functional as F
+    n_pages, bs, hkv, hd = k.shape
+    t, hq, _ = q.shape
+    kpos = torch.arange(n_pages * bs, device="cuda")
+    # key index -> (page, slot); page -> (table row, block) inverse map
+    inv_row = torch.full((n_pages,), -1, dtype=torch.long, device="cuda")
+    inv_blk = torch.full((n_pages,), -1, dtype=torch.long, device="cuda")
+    nb = tables.shape[1]
+    inv_row[tables.long().flatten()] = torch.arange(
+        tables.shape[0], device="cuda").repeat_interleave(nb)
+    inv_blk[tables.long().flatten()] = torch.arange(
+        nb, device="cuda").repeat(tables.shape[0])
+    key_row = inv_row[kpos // bs]
+    key_pos = inv_blk[kpos // bs] * bs + kpos % bs
+    mask = ((key_row[None, :] == row.long()[:, None])
+            & (key_pos[None, :] <= pos.long()[:, None]))
+    qq = q.permute(1, 0, 2)[None]
+    kk = k.reshape(-1, hkv, hd).permute(1, 0, 2)[None].to(q.dtype)
+    vv = v.reshape(-1, hkv, hd).permute(1, 0, 2)[None].to(q.dtype)
+    rep = hq // hkv
+    kk = kk.repeat_interleave(rep, dim=1).contiguous()
+    vv = vv.repeat_interleave(rep, dim=1).contiguous()
+    return lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask)
+
+
+def sdpa_decode(torch, q, k, v, tables, kv_len):
+    import torch.nn.functional as F
+    n_pages, bs, hkv, hd = k.shape
+    b, _, hq, _ = q.shape
+    nb = tables.shape[1]
+    idx = (tables.long()[:, :, None] * bs
+           + torch.arange(bs, device="cuda")).reshape(b, nb * bs)
+    kk = k.reshape(-1, hkv, hd)[idx].permute(0, 2, 1, 3)   # (B,Hkv,L,hd)
+    vv = v.reshape(-1, hkv, hd)[idx].permute(0, 2, 1, 3)
+    rep = hq // hkv
+    kk = kk.repeat_interleave(rep, dim=1).contiguous()
+    vv = vv.repeat_interleave(rep, dim=1).contiguous()
+    mask = (torch.arange(nb * bs, device="cuda")[None, :]
+            < kv_len.long()[:, None])[:, None, None, :]
+    qq = q.permute(0, 2, 1, 3)                              # (B,Hq,1,hd)
+    return lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask)
+
+
+def check(name, got, want, tol):
+    err = float((got.float() - want.float()).abs().max())
+    if not math.isfinite(err) or err > tol:
+        raise AssertionError(f"{name}: max abs err {err} > {tol}")
+    log(f"  {name}: max abs err {err:.3e} (tol {tol})")
+    return err
+
+
+ROW_REL = 2.0 ** -7   # twice the most one bf16 rounding moves a value
+ROW_ATOL = 1e-4       # float32 sums over <= 1,024 keys in another order
+
+
+def check_rows(name, got, want):
+    """A bf16 output against its float32 plain version, row by row: each
+    output row's (token, head) worst error must stay within ROW_REL of
+    the row's largest |want| plus ROW_ATOL, so a long row with small
+    outputs is held as tightly as a short one. Returns (max abs err,
+    worst error over its row's limit)."""
+    d = (got.float() - want.float()).abs().amax(-1)
+    lim = ROW_REL * want.float().abs().amax(-1) + ROW_ATOL
+    err, ratio = float(d.max()), float((d / lim).max())
+    if not math.isfinite(ratio) or ratio > 1:
+        raise AssertionError(f"{name}: a row's error is {ratio:.3f} of its "
+                             f"limit (max abs err {err:.3e})")
+    log(f"  {name}: max abs err {err:.3e}, worst row at {ratio:.3f} of its "
+        f"limit ({ROW_REL:.4g}*max|row| + {ROW_ATOL})")
+    return err, ratio
+
+
+def kernel_phase(torch, quick):
+    from repro_torch.kernels import decode_attention as kda
+    from repro_torch.kernels import ragged_attention as kra
+    from repro_torch.kernels import ref
+
+    reps = 5 if quick else 20
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    rows = {}
+
+    # -- ragged, f32 at hd 16 (the smoke width), TF32 off: tight check
+    q, k, v, tb, row, pos = ragged_batch(torch, 4, 2, 16, 4, torch.float32, 1)
+    check("ragged f32 hd16",
+          kra.ragged_paged_attention(q, k, v, tb, row, pos),
+          ref.ragged_paged_attention_reference(q, k, v, tb, row, pos), 1e-5)
+
+    # -- ragged at the main path's shapes
+    q, k32, v32, tb, row, pos = ragged_batch(torch, Hq, HKV, HD, BS,
+                                             torch.bfloat16, 2)
+    live = pos >= 0
+    q32 = q.float()
+    out = {}
+    for label, kd in (("bf16", torch.bfloat16), ("fp16", torch.float16)):
+        k, v = k32.to(kd), v32.to(kd)
+        got = kra.ragged_paged_attention(q, k, v, tb, row, pos)
+        want = ref.ragged_paged_attention_reference(q32, k.float(),
+                                                    v.float(), tb, row, pos)
+        err = check_rows(f"ragged {label} pages", got, want)
+        if not bool((got[~live] == 0).all()):
+            raise AssertionError("ragged: pad rows are not exactly 0")
+        out[label] = (k, v, err)
+    kq, ks, kz = ref.quantize_kv(k32)
+    vq, vs, vz = ref.quantize_kv(v32)
+    quant = {"k_scale": ks, "k_zero": kz, "v_scale": vs, "v_zero": vz}
+    got = kra.ragged_paged_attention(q, kq, vq, tb, row, pos, kv_quant=quant)
+    want = ref.ragged_paged_attention_reference(q32, kq, vq, tb, row, pos,
+                                                kv_quant=quant)
+    err_q8 = check_rows("ragged int8 pages", got, want)
+
+    k, v, err = out["bf16"]
+    nbytes, flops = ragged_cost(q, 2 * HKV * HD * 2, tb, row, pos, HKV, HD)
+    b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS)
+    rows["ragged_paged_attention"] = dict(
+        ms=time_ms(torch, lambda: kra.ragged_paged_attention(
+            q, k, v, tb, row, pos), reps, flush=flush),
+        plain_ms=time_ms(torch, lambda: ref.ragged_paged_attention_reference(
+            q, k, v, tb, row, pos), max(3, reps // 4), 1, flush),
+        library_ms=time_ms(torch, sdpa_ragged(torch, q, k, v, tb, row, pos),
+                           reps, flush=flush),
+        bound_ms=b_ms, bound_by=b_by, max_abs_err=err[0],
+        err_over_tol=err[1])
+    nbytes, flops = ragged_cost(q, 2 * HKV * (HD + 4 * 2), tb, row, pos,
+                                HKV, HD)
+    b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS)
+    kdq = ref.dequantize_kv(kq, ks, kz).to(torch.bfloat16)
+    vdq = ref.dequantize_kv(vq, vs, vz).to(torch.bfloat16)
+    rows["ragged_paged_attention_q8"] = dict(
+        ms=time_ms(torch, lambda: kra.ragged_paged_attention(
+            q, kq, vq, tb, row, pos, kv_quant=quant), reps, flush=flush),
+        plain_ms=time_ms(torch, lambda: ref.ragged_paged_attention_reference(
+            q, kq, vq, tb, row, pos, kv_quant=quant), max(3, reps // 4), 1,
+            flush),
+        library_ms=time_ms(torch, sdpa_ragged(torch, q, kdq, vdq, tb, row,
+                                              pos), reps, flush=flush),
+        bound_ms=b_ms, bound_by=b_by, max_abs_err=err_q8[0],
+        err_over_tol=err_q8[1])
+
+    # -- paged decode, f32 at hd 16, TF32 off
+    g = torch.Generator(device="cuda").manual_seed(3)
+
+    def decode_inputs(hq, hkv, hd, bs, lens, dtype):
+        b = len(lens)
+        nb = -(-max(lens) // bs) + 1
+        n_pages = b * nb + 1
+        tables = torch.randperm(n_pages - 1, generator=g, device="cuda")[
+            :b * nb].reshape(b, nb).to(torch.int32)
+        kk = torch.randn((n_pages, bs, hkv, hd), generator=g, device="cuda")
+        vv = torch.randn((n_pages, bs, hkv, hd), generator=g, device="cuda")
+        qq = torch.randn((b, 1, hq, hd), generator=g, device="cuda")
+        kl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        return qq.to(dtype), kk.to(dtype), vv.to(dtype), tables, kl
+
+    qd, kd_, vd, tbd, kl = decode_inputs(4, 2, 16, 4, [37, 1, 0, 16],
+                                         torch.float32)
+    check("decode f32 hd16",
+          kda.paged_decode_attention(qd, kd_, vd, tbd, kl),
+          ref.paged_decode_attention_reference(qd, kd_, vd, tbd, kl), 1e-5)
+    lens = [1024, 777, 300, 1]
+    qd, kd_, vd, tbd, kl = decode_inputs(Hq, HKV, HD, BS, lens,
+                                         torch.bfloat16)
+    err = check_rows("decode bf16 pages",
+                     kda.paged_decode_attention(qd, kd_, vd, tbd, kl),
+                     ref.paged_decode_attention_reference(
+                         qd.float(), kd_.float(), vd.float(), tbd, kl))
+    nbytes = (sum(lens) * 2 * HKV * HD * 2 + 2 * qd.numel() * 2
+              + (tbd.numel() + kl.numel()) * 4)
+    flops = sum(4 * Hq * HD * n for n in lens)
+    b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS)
+    rows["paged_decode_attention"] = dict(
+        ms=time_ms(torch, lambda: kda.paged_decode_attention(
+            qd, kd_, vd, tbd, kl), reps, flush=flush),
+        plain_ms=time_ms(torch, lambda: ref.paged_decode_attention_reference(
+            qd, kd_, vd, tbd, kl), reps, flush=flush),
+        library_ms=time_ms(torch, sdpa_decode(torch, qd, kd_, vd, tbd, kl),
+                           reps, flush=flush),
+        bound_ms=b_ms, bound_by=b_by, max_abs_err=err[0],
+        err_over_tol=err[1])
+    for name, r in rows.items():
+        log(f"  {name}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']}, plain {r['plain_ms']:.4f} ms, library "
+            f"{r['library_ms']:.4f} ms)")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 3: serve granite-3-8b at full width
+# ---------------------------------------------------------------------------
+
+
+def drive(torch, ep, prompts, consolidate_after=None, full=None,
+          profile_at=None):
+    """Serve ``prompts`` through ``ep`` to the end, timing each step (host
+    clock around a synchronised step). With ``consolidate_after``, the
+    endpoint is consolidated onto ``full`` once every request has that
+    many tokens. With ``profile_at``, the steps from that index on run
+    under the profiler (``profile_steps``) instead of the clock. Returns
+    (streams, per-step records, profile or None)."""
+    from repro_torch.serving.api import SamplingParams
+    reqs = [ep.submit(p, SamplingParams(max_new=32)) for p in prompts]
+    steps, prof = [], None
+    while ep.has_work():
+        if (consolidate_after is not None and ep.n_stages > 1
+                and all(len(r.generated) >= consolidate_after
+                        for r in reqs)):
+            t0 = time.perf_counter()
+            ep.consolidate(full)
+            torch.cuda.synchronize()
+            log(f"  consolidated 2 -> 1 stage in "
+                f"{(time.perf_counter() - t0) * 1e3:.1f} ms, "
+                f"{ep.last_migration_bytes} KV bytes moved")
+        if prof is None and profile_at is not None \
+                and len(steps) == profile_at:
+            prof = profile_steps(torch, ep)
+            continue
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = ep.step()
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0,
+                      out.prefill_tokens, len(out.events)))
+    return [list(r.generated) for r in reqs], steps, prof
+
+
+def profile_steps(torch, ep, n=4):
+    """Run ``n`` steps of ``ep`` under ``torch.profiler``: the device time
+    its kernels took per step (summed over kernels; one stream, so they do
+    not overlap), the profiled wall time per step, and the kernels with
+    the most device time. The profiler's own overhead lengthens the wall
+    time, so the device's busy share of an unprofiled step is device ms
+    over that step's clock time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            ep.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            kern[e.key] = e.device_time_total / 1e3 / n      # ms per step
+    top = sorted(kern.items(), key=lambda kv: -kv[1])[:6]
+    return {"steps": n, "device_ms_per_step": sum(kern.values()),
+            "profiled_wall_ms_per_step": wall * 1e3 / n,
+            "top_kernels_ms_per_step": {k[:60]: v for k, v in top}}
+
+
+def divergence_witness(torch, model, params, prompts, streams, q8_streams):
+    """Where a request's int8 stream leaves its bf16 stream, the logits at
+    the first diverging token, from one prefill of the prompt and the
+    tokens both streams share: with bf16 pages and with int8 pages, each
+    through the kernel and through the plain ragged version (swapped into
+    ``ops`` for that one call; the served path never runs it). Returns one
+    record per request; margins and deviations are in logits, over the
+    real vocabulary."""
+    import contextlib
+    from unittest import mock
+    from repro_torch.kernels import ops, ref
+    vocab = model.cfg.vocab
+    device = params["final_norm"].device
+    records = []
+    for i, (p, a, b) in enumerate(zip(prompts, streams, q8_streams)):
+        j = next((n for n, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            records.append({"request": i, "first_diverging": None})
+            continue
+        ctx = torch.tensor([p + a[:j]], dtype=torch.int32, device=device)
+
+        def logits(kv_dtype, plain=False):
+            swap = (mock.patch.object(ops, "ragged_paged_attention",
+                                      ref.ragged_paged_attention_reference)
+                    if plain else contextlib.nullcontext())
+            with swap:
+                lg, _ = model.prefill(params, ctx, 1024, kv_dtype=kv_dtype)
+            return lg[0, :vocab].float()
+
+        lb, lbp = logits(None), logits(None, plain=True)
+        l8, l8p = logits("int8"), logits("int8", plain=True)
+        top2 = lb.topk(2).values
+        records.append({
+            "request": i, "first_diverging": j, "of": len(a),
+            "bf16_token": a[j], "int8_token": b[j],
+            "prefill_argmax_bf16": int(lb.argmax()),
+            "prefill_argmax_int8": int(l8.argmax()),
+            "bf16_top2_margin": float(top2[0] - top2[1]),
+            "bf16_gap": float(lb[a[j]] - lb[b[j]]),
+            "int8_gap": float(l8[b[j]] - l8[a[j]]),
+            "logit_std": float(lb.std()),
+            "int8_vs_bf16_max": float((l8 - lb).abs().max()),
+            "kernel_vs_plain_max_bf16": float((lb - lbp).abs().max()),
+            "kernel_vs_plain_max_int8": float((l8 - l8p).abs().max()),
+        })
+    return records
+
+
+def step_stats(steps):
+    pre = [(t, n) for t, n, _ in steps if n > 0]
+    dec = [(t, e) for t, n, e in steps if n == 0]
+    ms = sorted(t * 1e3 for t, _, _ in steps)
+    dms = sorted(t * 1e3 for t, _ in dec)
+
+    def pct(xs, p):
+        return xs[min(len(xs) - 1, int(round(p * (len(xs) - 1))))] \
+            if xs else float("nan")
+
+    return {
+        "prefill_tok_s": sum(n for _, n in pre) / max(sum(t for t, _ in pre),
+                                                      1e-9),
+        "decode_tok_s": sum(e for _, e in dec) / max(sum(t for t, _ in dec),
+                                                     1e-9),
+        "step_ms_p50": pct(ms, 0.5), "step_ms_p99": pct(ms, 0.99),
+        "decode_step_ms_p50": pct(dms, 0.5),
+        "decode_step_ms_p99": pct(dms, 0.99),
+        "steps": len(steps),
+    }
+
+
+def serve_phase(torch):
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.attention import paged_kv_token_bytes
+    from repro_torch.models.model import Model
+    from repro_torch.serving.endpoint import ServingEndpoint
+    from repro_torch.serving.engine import Engine
+
+    cfg = get_config("granite-3-8b")
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(a.numel() for a in _leaves(params))
+    log(f"  granite-3-8b: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{n_params / 1e9:.3f} B params in {cfg.dtype}, drawn in "
+        f"{time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab, n).tolist()
+               for n in (300, 257, 412, 190)]
+    kw = dict(max_batch=4, max_seq=1024, block_size=16, paged=True,
+              prefill_chunk=256, device="cuda")
+    results = {}
+
+    # the main path: 2-stage endpoint, consolidated mid-stream
+    stages = [model.slice_stage_params(params, 2, i) for i in range(2)]
+    ep = ServingEndpoint(Engine(cfg, stages, **kw))
+    ops.reset_launch_counts()
+    streams, steps, _ = drive(torch, ep, prompts, consolidate_after=4,
+                              full=params)
+    torch.cuda.synchronize()
+    main_counts = ops.launch_counts()
+    if ep.n_stages != 1:
+        raise AssertionError("endpoint was not consolidated")
+    results["2-stage -> consolidated, bf16 KV"] = step_stats(steps)
+    log(f"  launches on the main path: {main_counts}")
+    for k in ("ragged_paged_attention", "paged_decode_attention"):
+        if main_counts[k] <= 0:
+            raise AssertionError(f"{k} never launched on the main path")
+    del ep
+
+    ref_ep = ServingEndpoint(Engine(cfg, [params], **kw))
+    ref_streams, ref_steps, ref_prof = drive(torch, ref_ep, prompts,
+                                             profile_at=PROFILE_AT)
+    results["1-stage, bf16 KV"] = step_stats(ref_steps)
+    if streams != ref_streams:
+        raise AssertionError(f"2-stage + consolidation streams differ from "
+                             f"the 1-stage engine's:\n{streams}\n"
+                             f"{ref_streams}")
+    if not all(len(s) == 32 and all(0 <= t < cfg.vocab for t in s)
+               for s in streams):
+        raise AssertionError(f"bad streams {streams}")
+    log("  streams: 2-stage + consolidation == 1-stage engine "
+        f"(first request: {streams[0][:8]} ...)")
+    del ref_ep
+
+    # the int8 path: fused ragged steps over int8 KV pages
+    q8 = ServingEndpoint(Engine(cfg, [params], fused=True, kv_dtype="int8",
+                                **kw))
+    ops.reset_launch_counts()
+    q8_streams, q8_steps, q8_prof = drive(torch, q8, prompts,
+                                          profile_at=PROFILE_AT)
+    torch.cuda.synchronize()
+    q8_counts = ops.launch_counts()
+    results["1-stage fused, int8 KV"] = step_stats(q8_steps)
+    log(f"  launches on the int8 path: {q8_counts}")
+    if q8_counts["ragged_paged_attention_q8"] <= 0:
+        raise AssertionError("the int8 ragged body never launched")
+    if not all(len(s) == 32 for s in q8_streams):
+        raise AssertionError(f"bad int8 streams {q8_streams}")
+    agree = sum(a == b for s, r in zip(q8_streams, streams)
+                for a, b in zip(s, r)) / sum(len(s) for s in streams)
+    log(f"  int8 streams agree with bf16 on {agree:.3f} of tokens")
+    del q8
+    witness = divergence_witness(torch, model, params, prompts, streams,
+                                 q8_streams)
+    for w in witness:
+        log(f"  int8 vs bf16 stream, first divergence: {w}")
+    for w in witness:
+        if w["first_diverging"] is None:
+            continue
+        # the streams part at a near-tie: within how far int8 pages move
+        # the logits
+        if not w["bf16_top2_margin"] <= w["int8_vs_bf16_max"]:
+            raise AssertionError(f"request {w['request']}: the streams part "
+                                 f"where int8 pages cannot flip the choice")
+        # the int8 body strays from its plain version no further than the
+        # fp body from its own, to a factor 2 (floor: 2^-5, one bf16 step
+        # of a logit between 4 and 8)
+        if not (w["kernel_vs_plain_max_int8"]
+                <= 2 * max(w["kernel_vs_plain_max_bf16"], 2.0 ** -5)):
+            raise AssertionError(f"request {w['request']}: the int8 kernel's "
+                                 f"logits stray from its plain version's")
+
+    kv_bytes = {"bf16": paged_kv_token_bytes(cfg),
+                "int8": paged_kv_token_bytes(cfg, "int8")}
+    if kv_bytes != {"bf16": 4096, "int8": 2176}:
+        raise AssertionError(f"KV bytes/token/layer {kv_bytes}")
+    for name, r in results.items():
+        log(f"  {name}: prefill {r['prefill_tok_s']:.1f} tok/s, decode "
+            f"{r['decode_tok_s']:.1f} tok/s, step p50 {r['step_ms_p50']:.2f}"
+            f" ms p99 {r['step_ms_p99']:.2f} ms, decode step p50 "
+            f"{r['decode_step_ms_p50']:.2f} ms p99 "
+            f"{r['decode_step_ms_p99']:.2f} ms, {r['steps']} steps")
+    log(f"  KV bytes/token/layer: {kv_bytes}")
+    profiles = {"1-stage, bf16 KV": ref_prof,
+                "1-stage fused, int8 KV": q8_prof}
+    for name, pr in profiles.items():
+        if pr is None:
+            raise AssertionError(f"{name}: served in fewer than "
+                                 f"{PROFILE_AT} steps, nothing profiled")
+        log(f"  {name}, {pr['steps']} decode steps profiled: device "
+            f"{pr['device_ms_per_step']:.2f} ms a step (profiled wall "
+            f"{pr['profiled_wall_ms_per_step']:.2f} ms); top kernels "
+            f"{pr['top_kernels_ms_per_step']}")
+    log("SERVE " + json.dumps({"results": results, "kv_bytes": kv_bytes,
+                               "launches_main": main_counts,
+                               "launches_int8": q8_counts,
+                               "int8_token_agreement": agree,
+                               "int8_divergence": witness,
+                               "profiles": profiles}))
+    return {"ragged_paged_attention": main_counts["ragged_paged_attention"],
+            "paged_decode_attention": main_counts["paged_decode_attention"],
+            "ragged_paged_attention_q8":
+                q8_counts["ragged_paged_attention_q8"]}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
+# ---------------------------------------------------------------------------
+
+
+KERNELS = [
+    ("ragged_paged_attention", "src/repro_torch/csrc/ragged_paged_attention.cu",
+     "src/repro/kernels/ragged_attention.py:105"),
+    ("ragged_paged_attention_q8",
+     "src/repro_torch/csrc/ragged_paged_attention.cu",
+     "src/repro/kernels/ragged_attention.py:105"),
+    ("paged_decode_attention", "src/repro_torch/csrc/paged_decode_attention.cu",
+     "src/repro/kernels/decode_attention.py:154"),
+]
+NOT_PORTED = [
+    ("flash_attention", "src/repro/kernels/flash_attention.py:69"),
+    ("decode_attention", "src/repro/kernels/decode_attention.py:85"),
+    ("wkv6", "src/repro/kernels/wkv6.py:66"),
+]
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--quick", action="store_true",
+                    help="build and check the kernels only")
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("FAIL: torch.cuda.is_available() is false: this "
+                         "smoke test runs on the card only")
+    if not (SRC / "repro_torch" / "csrc").is_dir():
+        raise SystemExit(f"FAIL: {SRC / 'repro_torch'} not found: run "
+                         f"from the root of a checkout of the repository")
+    sys.path.insert(0, str(SRC))
+    # full-precision float32 products for the f32 checks (both defaults,
+    # stated and set)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    log(smi.splitlines()[0])
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)}")
+
+    from repro_torch.kernels import _build
+    log("== build")
+    t0 = time.perf_counter()
+    logs = _build.build_all()
+    log(f"  built {sorted(logs) or 'nothing (cached)'} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name, text in logs.items():
+        regs = [int(m) for m in re.findall(r"Used (\d+) registers", text)]
+        spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill", text))
+        log(f"  {name}: {len(regs)} kernels, at most {max(regs)} registers "
+            f"a thread, {spills} bytes of spill stores and loads (ptxas)")
+
+    log("== kernels vs plain versions")
+    rows = kernel_phase(torch, args.quick)
+
+    launches = {k: None for k in rows}
+    if not args.quick:
+        log("== serve granite-3-8b at full width")
+        launches = serve_phase(torch)
+
+    kernels = []
+    for name, source, replaces in KERNELS:
+        r = rows[name]
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": launches[name],
+                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"],
+                        "library_ms": r["library_ms"],
+                        "err_over_tol": r["err_over_tol"]})
+    # the TPU kernels not ported yet, off this slice's path: named beside
+    # the ported ones so the line covers every pl.pallas_call of the repo
+    not_ported = [{"name": name, "status": "not ported yet",
+                   "replaces": replaces} for name, replaces in NOT_PORTED]
+    print(json.dumps({"kernels": kernels, "not_ported": not_ported}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,72 @@
+"""Paged decode attention: the CUDA kernel's wrapper.
+
+One query token per sequence against the shared page pool through block
+tables, masked by ``kv_len``. Kernel: ``csrc/paged_decode_attention.cu``
+(replaces ``src/repro/kernels/decode_attention.py::paged_decode_attention``);
+plain version: ``kernels/ref.py::paged_decode_attention_reference``.
+
+The slot-contiguous ``decode_attention`` (the reference's other kernel in
+that module) is not ported yet: the port serves the paged layout only.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import softmax_scale
+
+HEAD_DIMS = (16, 32, 64, 128)
+Q_DTYPES = (torch.float32, torch.bfloat16)
+PAGE_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+
+# launches, counted where the kernel is launched
+LAUNCHES = {"paged_decode_attention": 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_ARGTYPES = [_P] * 6 + [_I] * 6 + [ctypes.c_float, _I, _I, _P]
+
+
+def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_len):
+    """q (B,1,Hq,hd); pages (N,bs,Hkv,hd); block_tables (B,nb) int32 page
+    ids; kv_len (B,) int32 -> (B,1,Hq,hd) in q's dtype. Launches the CUDA
+    kernel on the current stream; raises on anything it does not take."""
+    _build.check_cuda("paged_decode_attention", q=q, k_pages=k_pages,
+                      v_pages=v_pages, block_tables=block_tables,
+                      kv_len=kv_len)
+    b, one, hq, hd = q.shape
+    n_pages, bs, hkv, hd_k = k_pages.shape
+    nb = block_tables.shape[1]
+    if one != 1:
+        raise ValueError(f"one query token per sequence, got {one}")
+    if q.dtype not in Q_DTYPES:
+        raise ValueError(f"q dtype {q.dtype} not in {Q_DTYPES}")
+    if k_pages.dtype not in PAGE_DTYPES or v_pages.dtype != k_pages.dtype:
+        raise ValueError(f"page dtypes {k_pages.dtype}/{v_pages.dtype}")
+    if hd not in HEAD_DIMS or hd_k != hd or v_pages.shape != k_pages.shape:
+        raise ValueError(f"head_dim {hd} (pages {tuple(k_pages.shape)}): "
+                         f"want one of {HEAD_DIMS}")
+    if hq % hkv:
+        raise ValueError(f"Hq={hq} not a multiple of Hkv={hkv}")
+    for k, a in (("block_tables", block_tables), ("kv_len", kv_len)):
+        if a.dtype != torch.int32:
+            raise ValueError(f"{k} must be int32, got {a.dtype}")
+    if block_tables.shape[0] != b or kv_len.shape != (b,):
+        raise ValueError("block_tables must be (B, nb), kv_len (B,)")
+    _build.check_aligned("paged_decode_attention", k_pages=k_pages,
+                         v_pages=v_pages)
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    fn = _build.entry("paged_decode_attention", _ARGTYPES)
+    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+             block_tables.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
+             b, hq, hkv, hd, nb, bs, softmax_scale(hd), _build.dtype_code(q.dtype),
+             _build.dtype_code(k_pages.dtype), stream)
+    if err:
+        raise RuntimeError(f"paged_decode_attention launch failed: CUDA "
+                           f"error {err}")
+    LAUNCHES["paged_decode_attention"] += 1
+    return out

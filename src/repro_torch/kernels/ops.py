@@ -1,0 +1,63 @@
+"""Kernel dispatch layer: by the device of the tensors.
+
+Models call these wrappers. A CPU tensor takes the kernel's plain PyTorch
+version (``kernels/ref.py``); a CUDA tensor takes the hand-written CUDA
+kernel, which launches or raises. There is no switch that runs the plain
+version on the card.
+
+Each kernel counts its launches (``launch_counts``), so a run can show
+that its attention went through the kernels.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+from repro_torch.kernels import decode_attention as _da
+from repro_torch.kernels import ragged_attention as _ra
+from repro_torch.kernels import ref as _ref
+
+
+def _on_card(t) -> bool:
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel for device {t.device}")
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches since the last ``reset_launch_counts``, by kernel."""
+    return {**_ra.LAUNCHES, **_da.LAUNCHES}
+
+
+def reset_launch_counts():
+    for counts in (_ra.LAUNCHES, _da.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_len):
+    """Single-token decode against a paged KV pool. q (B,1,Hq,hd);
+    pages (N,bs,Hkv,hd); block_tables (B,nb) page ids; kv_len (B,)."""
+    if _on_card(q):
+        return _da.paged_decode_attention(q, k_pages, v_pages, block_tables,
+                                          kv_len)
+    return _ref.paged_decode_attention_reference(
+        q, k_pages, v_pages, block_tables, kv_len)
+
+
+def ragged_paged_attention(q, k_pages, v_pages, tables, row, pos, *,
+                           kv_quant=None):
+    """Fused ragged-batch attention over a paged pool: one launch serves a
+    whole mixed prefill-chunk + decode step. q (T,Hq,hd) flattened query
+    tokens; pages (N,bs,Hkv,hd); tables (B,nb); row (T,) table row per
+    token; pos (T,) absolute position per token (-1 = pad). T is a multiple
+    of ``ragged_attention.TILE_Q`` and row is constant over each tile. ``kv_quant``
+    carries int8 pools' scale/zero leaves (dequant fused into the K/V
+    loads)."""
+    if _on_card(q):
+        return _ra.ragged_paged_attention(q, k_pages, v_pages, tables, row,
+                                          pos, kv_quant=kv_quant)
+    return _ref.ragged_paged_attention_reference(
+        q, k_pages, v_pages, tables, row, pos, kv_quant=kv_quant)

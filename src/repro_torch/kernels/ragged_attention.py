@@ -1,0 +1,93 @@
+"""Fused ragged-batch paged attention: the CUDA kernel's wrapper.
+
+One launch serves a whole mixed serving step (prefill chunks of any length
+and history, plus decode rows) flattened into ``q (T, Hq, hd)`` with a
+block-table ``row`` and an absolute ``pos`` per token; pad tokens carry
+``pos = -1`` and come back exactly 0. Kernel: ``csrc/ragged_paged_attention.cu``
+(replaces ``src/repro/kernels/ragged_attention.py::ragged_paged_attention``);
+plain version: ``kernels/ref.py::ragged_paged_attention_reference``.
+
+Layout contract (the runner's): ``T`` is a multiple of ``TILE_Q`` and
+``row`` is constant over each tile. ``TILE_Q`` is defined here only; the
+runner and ``Model.prefill`` lay their ragged batches out by it. ``kv_quant`` (int8 pages' scale/zero
+pools) selects the fused-dequant body.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import softmax_scale
+
+TILE_Q = 8      # query tokens per block; every span is aligned to it
+HEAD_DIMS = (16, 32, 64, 128)
+Q_DTYPES = (torch.float32, torch.bfloat16)
+PAGE_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.int8)
+
+# launches of each body, counted where the kernel is launched
+LAUNCHES = {"ragged_paged_attention": 0, "ragged_paged_attention_q8": 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_ARGTYPES = [_P] * 11 + [_I] * 7 + [ctypes.c_float, _I, _I, _P]
+
+
+def ragged_paged_attention(q, k_pages, v_pages, tables, row, pos, *,
+                           kv_quant=None):
+    """q (T,Hq,hd) ragged query tokens; pages (N,bs,Hkv,hd); tables (B,nb)
+    int32 page ids; row (T,) int32 table row per token; pos (T,) int32
+    absolute position per token (-1 = pad) -> (T,Hq,hd) in q's dtype.
+    Launches the CUDA kernel on the current stream; raises on anything it
+    does not take."""
+    quant = kv_quant or {}
+    _build.check_cuda("ragged_paged_attention", q=q, k_pages=k_pages,
+                      v_pages=v_pages, tables=tables, row=row, pos=pos,
+                      **{k: quant.get(k) for k in ("k_scale", "k_zero",
+                                                   "v_scale", "v_zero")})
+    t, hq, hd = q.shape
+    n_pages, bs, hkv, hd_k = k_pages.shape
+    nb = tables.shape[1]
+    if q.dtype not in Q_DTYPES:
+        raise ValueError(f"q dtype {q.dtype} not in {Q_DTYPES}")
+    if k_pages.dtype not in PAGE_DTYPES or v_pages.dtype != k_pages.dtype:
+        raise ValueError(f"page dtypes {k_pages.dtype}/{v_pages.dtype}")
+    if hd not in HEAD_DIMS or hd_k != hd or v_pages.shape != k_pages.shape:
+        raise ValueError(f"head_dim {hd} (pages {tuple(k_pages.shape)}): "
+                         f"want one of {HEAD_DIMS}")
+    if hq % hkv or t % TILE_Q:
+        raise ValueError(f"Hq={hq} Hkv={hkv} T={t} TILE_Q={TILE_Q}")
+    for k, a in (("tables", tables), ("row", row), ("pos", pos)):
+        if a.dtype != torch.int32:
+            raise ValueError(f"{k} must be int32, got {a.dtype}")
+    if row.shape != (t,) or pos.shape != (t,) or tables.dim() != 2:
+        raise ValueError("row/pos must be (T,), tables (B, nb)")
+    is_q8 = k_pages.dtype == torch.int8
+    if is_q8 != (kv_quant is not None):
+        raise ValueError("int8 pages need kv_quant scale/zero pools, and "
+                         "only int8 pages take them")
+    ptrs = [None] * 4
+    if is_q8:
+        for i, k in enumerate(("k_scale", "k_zero", "v_scale", "v_zero")):
+            a = kv_quant[k]
+            if a.dtype != torch.float32 or a.shape != k_pages.shape[:-1]:
+                raise ValueError(f"{k}: want f32 {tuple(k_pages.shape[:-1])}")
+            ptrs[i] = a.data_ptr()
+    _build.check_aligned("ragged_paged_attention", k_pages=k_pages,
+                         v_pages=v_pages)
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    fn = _build.entry("ragged_paged_attention", _ARGTYPES)
+    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), *ptrs,
+             tables.data_ptr(), row.data_ptr(), pos.data_ptr(),
+             out.data_ptr(), t, hq, hkv, hd, nb, bs, TILE_Q,
+             softmax_scale(hd), _build.dtype_code(q.dtype),
+             _build.dtype_code(k_pages.dtype), stream)
+    if err:
+        raise RuntimeError(f"ragged_paged_attention launch failed: CUDA "
+                           f"error {err}")
+    LAUNCHES["ragged_paged_attention_q8" if is_q8
+             else "ragged_paged_attention"] += 1
+    return out

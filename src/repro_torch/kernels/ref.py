@@ -1,0 +1,155 @@
+"""Plain PyTorch versions of the hand-written kernels: the CPU path of
+``kernels/ops.py`` and the yardstick ``chip_smoke.py`` holds each CUDA
+kernel against on the card.
+
+Shapes follow the reference (``src/repro/kernels/ref.py``):
+  q          (B, Sq, Hq, hd)         ragged: (T, Hq, hd)
+  pages      (N, bs, Hkv, hd)        Hq % Hkv == 0 (GQA), head hq reads
+                                     kv head hq // (Hq // Hkv)
+  kv_len     (B,) int32 valid cache length per sequence
+
+Scores, softmax and accumulation run in float32 and the output is cast to
+q's dtype. A masked key takes no part in the sum (its probability is
+zeroed before the product), and a row with no valid key at all (a pad
+token, ``kv_len == 0``) comes back exactly 0: ``acc / max(l, 1e-30)``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+NEG_INF = -1e30
+
+
+def softmax_scale(hd: int) -> float:
+    """The attention score scale, 1/sqrt(head_dim): the one place the
+    kernels' wrappers and the plain versions take it from."""
+    return 1.0 / math.sqrt(hd)
+
+
+def _masked_softmax_av(s, mask, v):
+    """s (..., Lq, L) f32 scores, mask (..., Lq, L) bool, v (..., L, hd)
+    f32 -> (..., Lq, hd). The online-softmax finish of the kernels written
+    in one pass: masked keys get p = 0, and a fully masked row is 0."""
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), torch.zeros_like(s))
+    l = p.sum(dim=-1, keepdim=True)
+    return (p @ v) / torch.clamp_min(l, 1e-30)
+
+
+# ---------------------------------------------------------------------------
+# int8 KV page quantization (per-row, per-KV-head, asymmetric).
+# ---------------------------------------------------------------------------
+
+
+def quantize_kv(x):
+    """Quantize KV rows to int8 along the head_dim axis.
+
+    x (..., Hkv, hd) float -> (q int8, scale f32 (..., Hkv), zero f32
+    (..., Hkv)) with x ~= q * scale + zero: zero = midrange, scale =
+    range / 254. ``torch.round`` rounds half to even like ``jnp.round``, so
+    the bytes, scales and zeros equal the reference's."""
+    xf = x.float()
+    mx = xf.amax(dim=-1)
+    mn = xf.amin(dim=-1)
+    zero = (mx + mn) * 0.5
+    scale = torch.clamp_min(mx - mn, 1e-8) / 254.0
+    q = torch.clamp(torch.round((xf - zero[..., None]) / scale[..., None]),
+                    -127, 127).to(torch.int8)
+    return q, scale, zero
+
+
+def dequantize_kv(q, scale, zero):
+    """Inverse of :func:`quantize_kv`: (..., Hkv, hd) f32."""
+    return q.float() * scale[..., None] + zero[..., None]
+
+
+# ---------------------------------------------------------------------------
+# Ragged-batch paged attention: one pass over a whole mixed step.
+# ---------------------------------------------------------------------------
+
+
+def _gather_rows(pages, table_row, n_rows):
+    """Rows [0, n_rows) of one sequence from the pool: (n_rows, ...)."""
+    bs = pages.shape[1]
+    pos = torch.arange(n_rows, device=pages.device)
+    flat = pages.reshape((-1,) + tuple(pages.shape[2:]))
+    return flat[table_row[pos // bs].long() * bs + pos % bs]
+
+
+def ragged_paged_attention_reference(q, k_pages, v_pages, tables, row, pos,
+                                     *, kv_quant=None):
+    """Plain version of ``ragged_paged_attention``.
+
+    q (T,Hq,hd) — the step's query tokens flattened across requests;
+    pages (N,bs,Hkv,hd); tables (B,nb) int32 page ids; row (T,) int32
+    block-table row of each token; pos (T,) int32 absolute position
+    (-1 = pad). Token t attends over kv positions [0, pos[t]] of its row's
+    pages; pad tokens return exactly 0. ``kv_quant`` ({k,v}_{scale,zero}
+    pools (N,bs,Hkv) f32) dequantizes int8 pages at load.
+
+    Each distinct table row's span is gathered once (up to its tokens'
+    largest position) and its tokens attend over it, so no per-token copy
+    of the history is made."""
+    t, hq, hd = q.shape
+    hkv = k_pages.shape[2]
+    g = hq // hkv
+    scale = softmax_scale(hd)
+    out = torch.zeros((t, hq, hd), dtype=torch.float32, device=q.device)
+    row = row.long()
+    pos = pos.long()
+    live = pos >= 0
+    for r in torch.unique(row[live]).tolist():
+        sel = torch.nonzero(live & (row == r)).flatten()
+        n = int(pos[sel].max()) + 1
+        kf = _gather_rows(k_pages, tables[r], n)          # (n,Hkv,hd)
+        vf = _gather_rows(v_pages, tables[r], n)
+        if kv_quant is not None:
+            kf = dequantize_kv(kf, _gather_rows(kv_quant["k_scale"],
+                                                tables[r], n),
+                               _gather_rows(kv_quant["k_zero"], tables[r], n))
+            vf = dequantize_kv(vf, _gather_rows(kv_quant["v_scale"],
+                                                tables[r], n),
+                               _gather_rows(kv_quant["v_zero"], tables[r], n))
+        kf = kf.float().permute(1, 0, 2)[:, None]          # (Hkv,1,n,hd)
+        vf = vf.float().permute(1, 0, 2)[:, None]
+        qs = q[sel].float().reshape(-1, hkv, g, hd).permute(1, 2, 0, 3)
+        s = (qs @ kf.transpose(-1, -2)) * scale            # (Hkv,G,tr,n)
+        mask = (torch.arange(n, device=q.device)[None, :]
+                <= pos[sel][:, None])                      # (tr, n)
+        o = _masked_softmax_av(s, mask[None, None], vf)    # (Hkv,G,tr,hd)
+        out[sel] = o.permute(2, 0, 1, 3).reshape(-1, hq, hd)
+    return out.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Paged decode attention: one new token per sequence against the pool.
+# ---------------------------------------------------------------------------
+
+
+def paged_decode_attention_reference(q, k_pages, v_pages, block_tables,
+                                     kv_len):
+    """Plain version of ``paged_decode_attention``.
+
+    q (B,1,Hq,hd); pages (N,bs,Hkv,hd) shared pool; block_tables (B,nb)
+    int32 page ids; kv_len (B,) valid lengths. Table entries past a
+    sequence's ``kv_len`` may name any valid page: the mask drops them."""
+    b, one, hq, hd = q.shape
+    n_pages, bs, hkv, _ = k_pages.shape
+    nb = block_tables.shape[1]
+    g = hq // hkv
+    scale = softmax_scale(hd)
+    idx = (block_tables.long()[:, :, None] * bs
+           + torch.arange(bs, device=q.device)).reshape(b, nb * bs)
+    kf = k_pages.reshape(n_pages * bs, hkv, hd)[idx].float()  # (B,L,Hkv,hd)
+    vf = v_pages.reshape(n_pages * bs, hkv, hd)[idx].float()
+    qs = q[:, 0].float().reshape(b, hkv, g, hd)               # (B,Hkv,G,hd)
+    s = (qs @ kf.permute(0, 2, 3, 1)) * scale                 # (B,Hkv,G,L)
+    mask = (torch.arange(nb * bs, device=q.device)[None, :]
+            < kv_len.long()[:, None])                         # (B, L)
+    out = _masked_softmax_av(s, mask[:, None, None, :],
+                             vf.permute(0, 2, 1, 3))          # (B,Hkv,G,hd)
+    return out.reshape(b, 1, hq, hd).to(q.dtype)

@@ -1,0 +1,185 @@
+"""GQA self-attention over the paged KV layout, with RoPE and QKV bias.
+
+The port serves the paged layout only: K/V live in a shared page pool
+(N, bs, Hkv, hd) addressed through per-request block tables. Two branches
+of the reference's ``self_attention`` are here: the fused ragged step (a
+whole mixed batch through ``ops.ragged_paged_attention``) and the paged
+decode step (``ops.paged_decode_attention``). The slot-contiguous branch,
+the paged prefill over ``flash_attention`` and cross-attention wait for
+the ``flash_attention`` and ``decode_attention`` kernels and raise.
+
+Where JAX rebuilt the pools functionally, the port writes into them in
+place (``paged_kv_write``, ``ragged_kv_write``).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import quantize_kv
+from repro_torch.models.common import ParamDef, apply_rope, as_dtype
+
+# Per-row quantization parameters stored alongside int8 page pools, in the
+# same cache subtree as k_pages/v_pages so every page-granular operation
+# (copy_pages, migration gather) carries them automatically.
+KV_QUANT_LEAVES = ("k_scale", "k_zero", "v_scale", "v_zero")
+
+
+def attn_defs(cfg: ModelConfig, cross: bool = False) -> dict:
+    d, hd = cfg.d_model, cfg.head_dim
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    defs = {
+        "w_q": ParamDef((d, hq * hd), ("embed", "heads")),
+        "w_k": ParamDef((d, hkv * hd), ("embed", "kv_heads")),
+        "w_v": ParamDef((d, hkv * hd), ("embed", "kv_heads")),
+        "w_o": ParamDef((hq * hd, d), ("heads", "embed")),
+        "norm": ParamDef((d,), ("embed",), init="ones"),
+    }
+    if cfg.qkv_bias and not cross:
+        defs["b_q"] = ParamDef((hq * hd,), ("heads",), init="zeros")
+        defs["b_k"] = ParamDef((hkv * hd,), ("kv_heads",), init="zeros")
+        defs["b_v"] = ParamDef((hkv * hd,), ("kv_heads",), init="zeros")
+    return defs
+
+
+def _project(cfg, p, x, which: str, n_heads: int):
+    y = x @ p[f"w_{which}"].to(x.dtype)
+    if cfg.qkv_bias and f"b_{which}" in p:
+        y = y + p[f"b_{which}"].to(x.dtype)
+    b, s, _ = y.shape
+    return y.reshape(b, s, n_heads, cfg.head_dim)
+
+
+def paged_kv_token_bytes(cfg: ModelConfig, kv_dtype=None) -> int:
+    """Exact bytes one token row occupies in ONE attention period's page
+    pools: the K + V rows plus, for quantized pools, the per-row
+    scale/zero leaves. Single source of truth for every KV byte account
+    (``BlockManager.bytes_per_token`` → migration_bytes). ``kv_dtype=None``
+    means the pools hold the compute dtype (``cfg.dtype``)."""
+    kd = as_dtype(kv_dtype if kv_dtype is not None else cfg.dtype)
+    per = 2 * cfg.n_kv_heads * cfg.head_dim * kd.itemsize
+    if kd == torch.int8:
+        per += len(KV_QUANT_LEAVES) * cfg.n_kv_heads * 4   # f32 scale/zero
+    return per
+
+
+def paged_kv_write(pages, new, block_tables, positions):
+    """Scatter new K/V rows into the shared page pool, in place.
+
+    pages (N,bs,Hkv,hd); new (B,S,Hkv,hd); block_tables (B,nb) int32 page
+    ids; positions (B,S) absolute token positions (token t of sequence b
+    lives at page block_tables[b, t // bs], row t % bs). Returns ``pages``.
+    """
+    n_pages, bs = pages.shape[0], pages.shape[1]
+    pos = positions.long()
+    page = torch.gather(block_tables.long(), 1, pos // bs)
+    idx = (page * bs + pos % bs).reshape(-1)
+    flat = pages.view((n_pages * bs,) + tuple(pages.shape[2:]))
+    flat[idx] = new.to(pages.dtype).reshape((-1,) + tuple(new.shape[2:]))
+    return pages
+
+
+def ragged_kv_write(pages, new, tables, row, pos, valid):
+    """Scatter a ragged batch's new K/V rows into the shared page pool, in
+    place.
+
+    pages (N,bs,...); new (T,...trailing dims of pages...); tables (B,nb)
+    int32 page ids; row (T,) block-table row per token; pos (T,) absolute
+    position per token; valid (T,) bool. Token t lands at page
+    ``tables[row[t], pos[t] // bs]``, slot ``pos[t] % bs``; invalid
+    (padding) rows go to the trash page — the pool's last page, which the
+    runner's null-page convention reserves (n_pages = n_blocks + 1).
+    Returns ``pages``."""
+    n_pages, bs = pages.shape[0], pages.shape[1]
+    posc = torch.clamp_min(pos.long(), 0)             # pad rows: safe index
+    page = tables.long()[row.long(), posc // bs]      # (T,)
+    idx = page * bs + posc % bs
+    idx = torch.where(valid, idx, torch.full_like(idx, (n_pages - 1) * bs))
+    flat = pages.view((n_pages * bs,) + tuple(pages.shape[2:]))
+    flat[idx] = new.to(pages.dtype)
+    return pages
+
+
+def self_attention(cfg: ModelConfig, p: dict, x, *, positions,
+                   causal: bool = True,
+                   kv_cache: Optional[Tuple] = None,
+                   decode: bool = False,
+                   block_tables=None,
+                   ragged=None,
+                   kv_quant: Optional[dict] = None):
+    """x (B,S,d). positions (B,S) absolute positions of the tokens in x.
+
+    ``ragged`` = (tables (R,nb), row (T,), valid (T,)) is the fused
+    ragged-batch path: x is (1, T, d) — a whole mixed step (prefill chunks
+    of varying history + decode rows) flattened into one token axis,
+    ``positions`` (1, T) giving each token's absolute position (-1 = pad).
+    K/V are written via :func:`ragged_kv_write` (pads to the trash page)
+    and ONE ``ops.ragged_paged_attention`` launch serves the whole batch.
+    ``kv_quant`` (the int8 pools' scale/zero leaves) turns on quantized
+    writes + fused-dequant loads; ``new_cache`` is then a dict of all five
+    pool leaves instead of a (k, v) tuple.
+
+    ``decode=True`` with ``block_tables`` (B,nb) is the paged decode step:
+    S == 1, the new K/V are written at ``positions`` and attention reads
+    the pool through the tables (``ops.paged_decode_attention``).
+
+    Returns (out (B,S,d), new_cache): the same pool tensors, written in
+    place.
+    """
+    if kv_cache is None or (ragged is None and block_tables is None):
+        raise NotImplementedError(
+            "the slot-contiguous layout waits for the flash_attention and "
+            "decode_attention kernels: the port serves paged pools only")
+    if ragged is None and not decode:
+        raise NotImplementedError(
+            "paged prefill outside the ragged step waits for the "
+            "flash_attention kernel: use the ragged path")
+    if kv_quant is not None and ragged is None:
+        raise ValueError("quantized KV pools are only served by the ragged "
+                         "fused path")
+    bsz, seq, _ = x.shape
+    q = _project(cfg, p, x, "q", cfg.n_heads)
+    k = _project(cfg, p, x, "k", cfg.n_kv_heads)
+    v = _project(cfg, p, x, "v", cfg.n_kv_heads)
+    if cfg.pos_embed == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+
+    ck, cv = kv_cache
+    if ragged is not None:
+        assert bsz == 1
+        tables, row, valid = ragged
+        pos1 = positions[0]
+        q1, k1, v1 = q[0], k[0], v[0]
+        if kv_quant is not None:
+            kq, ks, kz = quantize_kv(k1)
+            vq, vs, vz = quantize_kv(v1)
+            ragged_kv_write(ck, kq, tables, row, pos1, valid)
+            ragged_kv_write(cv, vq, tables, row, pos1, valid)
+            for leaf, val in zip(KV_QUANT_LEAVES, (ks, kz, vs, vz)):
+                ragged_kv_write(kv_quant[leaf], val, tables, row, pos1,
+                                valid)
+            new_cache = {"k_pages": ck, "v_pages": cv, **kv_quant}
+        else:
+            ragged_kv_write(ck, k1, tables, row, pos1, valid)
+            ragged_kv_write(cv, v1, tables, row, pos1, valid)
+            new_cache = (ck, cv)
+        out1 = ops.ragged_paged_attention(q1.contiguous(), ck, cv, tables,
+                                          row, pos1, kv_quant=kv_quant)
+        out = out1[None].to(x.dtype)
+    else:
+        assert seq == 1
+        paged_kv_write(ck, k, block_tables, positions)
+        paged_kv_write(cv, v, block_tables, positions)
+        new_cache = (ck, cv)
+        kv_len = (positions[:, 0] + 1).to(torch.int32)
+        out = ops.paged_decode_attention(q.contiguous(), ck, cv,
+                                         block_tables, kv_len)
+
+    b, s, hq, hd = out.shape
+    y = out.reshape(b, s, hq * hd) @ p["w_o"].to(x.dtype)
+    return y, new_cache

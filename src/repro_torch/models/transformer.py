@@ -1,0 +1,180 @@
+"""Decoder LM over a repeated *period* of layers (the port's slice:
+attention mixers with dense MLPs).
+
+Params are stacked over periods on axis 0, as in the reference; where the
+reference scans the periods with ``lax.scan``, ``run_blocks`` loops over
+them in Python and hands each period a view of its slice. Pipeline stages
+slice the stacked axis — stage i owns periods [p0, p1) — via
+``slice_blocks``, which returns views, so stage params share the full
+weights' memory.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models import mlp as mlp_mod
+from repro_torch.models.common import (ParamDef, as_dtype, rmsnorm,
+                                       stack_defs, tree_map)
+
+
+def _period_plan(cfg: ModelConfig):
+    return [(mix, cfg.mlp_pattern[i % len(cfg.mlp_pattern)])
+            for i, mix in enumerate(cfg.mixer_pattern)]
+
+
+def _check_supported(cfg: ModelConfig):
+    for mix, mlp in _period_plan(cfg):
+        if mix != "attn" or mlp != "dense" or cfg.is_encdec:
+            raise NotImplementedError(
+                f"{cfg.name}: the port serves attention mixers with dense "
+                f"MLPs (got {mix}/{mlp}); mamba, rwkv, MoE and enc-dec are "
+                f"not ported yet")
+
+
+# ---------------------------------------------------------------------------
+# Param defs
+# ---------------------------------------------------------------------------
+
+
+def block_defs(cfg: ModelConfig) -> dict:
+    _check_supported(cfg)
+    return {f"slot{i:02d}": {"mixer": attn.attn_defs(cfg),
+                             "mlp": mlp_mod.dense_mlp_defs(cfg)}
+            for i in range(len(cfg.mixer_pattern))}
+
+
+def lm_defs(cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    defs = {
+        "embed": {"tok": ParamDef((cfg.padded_vocab, d), ("vocab", "embed"))},
+        "blocks": stack_defs(block_defs(cfg), cfg.n_periods, "layers"),
+        "final_norm": ParamDef((d,), ("embed",), init="ones"),
+    }
+    if cfg.pos_embed == "learned":
+        defs["embed"]["pos"] = ParamDef((cfg.max_position, d), (None, "embed"))
+    if not cfg.tie_embeddings:
+        defs["lm_head"] = ParamDef((d, cfg.padded_vocab), ("embed", "vocab"))
+    return defs
+
+
+# ---------------------------------------------------------------------------
+# Caches (stacked over periods on axis 0)
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype, *,
+               n_periods: Optional[int] = None, paged: bool = False,
+               n_pages: Optional[int] = None,
+               page_size: Optional[int] = None, kv_dtype=None, device=None):
+    """Stacked per-period paged KV pools (np, N, bs, Hkv, hd), zero-filled:
+    pad and idle-slot writes land on the null/trash page, and no pool row
+    that attention may reach ever holds NaN. ``kv_dtype`` overrides the
+    pool storage dtype; int8 adds per-row scale/zero leaves
+    (attention.KV_QUANT_LEAVES, f32). The slot-contiguous layout
+    (``paged=False``) is not ported yet."""
+    if not paged:
+        raise NotImplementedError("the port serves the paged KV layout only")
+    _check_supported(cfg)
+    assert n_pages is not None and page_size is not None
+    np_ = n_periods if n_periods is not None else cfg.n_periods
+    kd = as_dtype(kv_dtype if kv_dtype is not None else dtype)
+    shp = (np_, n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
+    cache = {}
+    for i in range(len(cfg.mixer_pattern)):
+        slot = {"k_pages": torch.zeros(shp, dtype=kd, device=device),
+                "v_pages": torch.zeros(shp, dtype=kd, device=device)}
+        if kd == torch.int8:
+            for leaf in attn.KV_QUANT_LEAVES:
+                slot[leaf] = torch.zeros(shp[:-1], dtype=torch.float32,
+                                         device=device)
+        cache[f"slot{i:02d}"] = slot
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+
+def embed(cfg: ModelConfig, params: dict, tokens, positions, dtype=None):
+    """tokens (B,S) -> x (B,S,d)."""
+    x = params["embed"]["tok"][tokens.long()]
+    if dtype is not None:
+        x = x.to(dtype)
+    if cfg.pos_embed == "learned":
+        x = x + params["embed"]["pos"][positions.long()].to(x.dtype)
+    return x
+
+
+def head(cfg: ModelConfig, params: dict, x):
+    xn = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    w = (params["embed"]["tok"].T if cfg.tie_embeddings
+         else params["lm_head"])
+    logits = xn @ w.to(xn.dtype)
+    if cfg.padded_vocab != cfg.vocab:      # mask padded vocab entries
+        logits[..., cfg.vocab:] = -1e30
+    return logits
+
+
+def _period_step(cfg: ModelConfig, pslice: dict, cslice, x, positions,
+                 decode: bool, block_tables=None, ragged=None):
+    for i in range(len(cfg.mixer_pattern)):
+        slot = f"slot{i:02d}"
+        sp = pslice[slot]
+        c = cslice.get(slot) if cslice is not None else None
+        xin = rmsnorm(x, sp["mixer"]["norm"], cfg.norm_eps)
+        kvc = (c["k_pages"], c["v_pages"]) if c is not None else None
+        kvq = ({leaf: c[leaf] for leaf in attn.KV_QUANT_LEAVES}
+               if c is not None and "k_scale" in c else None)
+        y, _ = attn.self_attention(cfg, sp["mixer"], xin,
+                                   positions=positions, kv_cache=kvc,
+                                   decode=decode, block_tables=block_tables,
+                                   ragged=ragged, kv_quant=kvq)
+        x = x + y
+        xin = rmsnorm(x, sp["mlp"]["norm"], cfg.norm_eps)
+        x = x + mlp_mod.dense_mlp(sp["mlp"], xin)
+    return x
+
+
+def run_blocks(cfg: ModelConfig, blocks: dict, x, positions, *,
+               cache: Optional[dict] = None, decode: bool = False,
+               block_tables=None, ragged=None):
+    """Run the stacked periods in order. ``blocks``/``cache`` leading dim =
+    periods (possibly a stage's slice); each period gets views of its
+    slice, so the pools are written in place. ``block_tables`` (B,nb)
+    addresses the paged pools on a decode step; ``ragged`` = (tables, row,
+    valid) routes attention through the fused ragged-batch kernel — x is
+    (1, T, d), positions (1, T) with -1 pads. Returns (x, cache)."""
+    for i in range(blocks["slot00"]["mixer"]["w_q"].shape[0]):
+        pslice = tree_map(lambda a: a[i], blocks)
+        cslice = tree_map(lambda a: a[i], cache) if cache is not None \
+            else None
+        x = _period_step(cfg, pslice, cslice, x, positions, decode,
+                         block_tables=block_tables, ragged=ragged)
+    return x, cache
+
+
+# ---------------------------------------------------------------------------
+# Stage slicing (pipeline-parallel cold starts)
+# ---------------------------------------------------------------------------
+
+
+def slice_blocks(params_or_cache, p0: int, p1: int):
+    """Views of the stacked period axis [p0, p1) of a blocks/cache tree."""
+    return tree_map(lambda a: a[p0:p1], params_or_cache)
+
+
+def stage_period_ranges(n_periods: int, n_stages: int):
+    """Balanced contiguous period ranges, one per pipeline stage."""
+    base, rem = divmod(n_periods, n_stages)
+    ranges, start = [], 0
+    for i in range(n_stages):
+        size = base + (1 if i < rem else 0)
+        ranges.append((start, start + size))
+        start += size
+    return ranges

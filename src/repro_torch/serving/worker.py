@@ -1,0 +1,146 @@
+"""Stage worker: holds one pipeline stage's parameter slice and the paged KV
+pools of its periods, and runs the stage's part of each forward.
+
+The pools are a shared page pool per attention period, (P, N, bs, Hkv, hd),
+addressed through the block tables the engine's BlockManager hands out.
+The forwards write new K/V into them in place, and so do ``copy_pages``
+and ``write_page`` (the reference rebuilt each pool array functionally).
+The slot-contiguous layout and recurrent mixer states are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer
+from repro_torch.models.common import tree_map
+from repro_torch.models.model import Model
+
+
+class StageWorker:
+    def __init__(self, cfg: ModelConfig, stage_params: dict, n_stages: int,
+                 stage: int, max_batch: int, max_seq: int,
+                 paged: bool = True, n_pages: Optional[int] = None,
+                 page_size: Optional[int] = None, kv_dtype=None,
+                 device=None):
+        if not paged:
+            raise NotImplementedError("the port's StageWorker serves the "
+                                      "paged KV layout only")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.model = Model(cfg)
+        self.n_stages = n_stages
+        self.stage = stage
+        self.first = stage == 0
+        self.last = stage == n_stages - 1
+        p0, p1 = self.model.stage_ranges(n_stages)[stage]
+        self.periods = (p0, p1)
+        self.params = stage_params
+        self._check_params_device()
+        self.max_batch = max_batch
+        self.max_seq = max_seq
+        self.paged = paged
+        self.n_pages = n_pages
+        self.page_size = page_size
+        self.kv_dtype = kv_dtype
+        self.cache = transformer.init_cache(
+            cfg, max_batch, max_seq, cfg.dtype, n_periods=p1 - p0,
+            paged=True, n_pages=n_pages, page_size=page_size,
+            kv_dtype=kv_dtype, device=self.device)
+        # correctness tracer (the reference's analysis/sanitizer.py hooks);
+        # None in production
+        self.tracer = None
+
+    def _check_params_device(self):
+        def chk(a):
+            if a.device.type != self.device.type:
+                raise ValueError(f"stage params on {a.device}, worker on "
+                                 f"{self.device}: move the params first")
+        tree_map(chk, self.params)
+
+    # ------------------------------------------------------------ public
+    @torch.no_grad()
+    def forward_ragged(self, x_in, positions, row, valid, tables, out_idx):
+        """One fused launch over a ragged mixed batch. First stage takes
+        tokens (1, T); later stages take hidden states (1, T, d).
+        ``positions`` (1, T), ``row/valid`` (T,) are the per-token
+        descriptors (attention.self_attention ragged contract), ``tables``
+        the full block-table matrix, ``out_idx`` (n_out,) the flat index of
+        each segment's last real token. Last stage returns logits
+        (1, n_out, V); others the full hidden (1, T, d)."""
+        cfg = self.cfg
+        if self.first:
+            # clamp pad positions (-1) for the embed only; attention masks
+            # on the raw values
+            x = transformer.embed(cfg, self.params, x_in,
+                                  torch.clamp_min(positions, 0),
+                                  dtype=self.model.dtype)
+        else:
+            x = x_in
+        x, _ = transformer.run_blocks(cfg, self.params["blocks"], x,
+                                      positions, cache=self.cache,
+                                      ragged=(tables, row, valid))
+        if not self.last:
+            return x
+        # only each segment's last real token needs logits
+        sel = x[0][out_idx.long()][None]
+        return transformer.head(cfg, self.params, sel)
+
+    @torch.no_grad()
+    def decode(self, x_in, positions, block_tables=None):
+        """One batched decode step through the stage: tokens (B, 1) on the
+        first stage, hidden (B, 1, d) after; last stage returns logits
+        (B, 1, V)."""
+        cfg = self.cfg
+        if self.first:
+            x = transformer.embed(cfg, self.params, x_in, positions,
+                                  dtype=self.model.dtype)
+        else:
+            x = x_in
+        x, _ = transformer.run_blocks(cfg, self.params["blocks"], x,
+                                      positions, cache=self.cache,
+                                      decode=True,
+                                      block_tables=block_tables)
+        return transformer.head(cfg, self.params, x) if self.last else x
+
+    def copy_pages(self, src: int, dst: int):
+        """Copy page ``src`` onto page ``dst`` in every pool leaf (all
+        periods), in place — the engine's copy-on-write when a prefix-cache
+        hit covers a whole prompt and the final token must be recomputed
+        into a private block."""
+        if self.tracer is not None:
+            self.tracer.on_copy_pages(src, dst, self.stage)
+        for sub in self.cache.values():
+            for arr in sub.values():
+                arr[:, dst] = arr[:, src]
+
+    def read_page(self, name: str, blk: int):
+        """Host copies (CPU tensors) of one attention pool's page ``blk``,
+        every leaf: {"k_pages": (P_stage, page_size, Hkv, hd), "v_pages":
+        ..., plus scale/zero leaves (P_stage, page_size, Hkv) for int8
+        pools}."""
+        if self.tracer is not None:
+            self.tracer.on_page_read(name, blk, self.stage)
+        return {leaf: arr[:, blk].to("cpu", copy=True)
+                for leaf, arr in self.cache[name].items()}
+
+    def write_page(self, name: str, blk: int, k, v, extras=None):
+        """Write one page's K/V (and, for int8 pools, the scale/zero
+        ``extras`` dict) back into an attention pool, in place."""
+        if self.tracer is not None:
+            self.tracer.on_page_write(name, blk, self.stage)
+        sub = self.cache[name]
+        for leaf, val in (("k_pages", k), ("v_pages", v),
+                          *(extras or {}).items()):
+            sub[leaf][:, blk] = torch.as_tensor(val).to(sub[leaf].device,
+                                                        sub[leaf].dtype)
+
+    def retire(self):
+        """Drop the cache and params so a retired engine's stale worker
+        fails fast instead of writing into pools it no longer owns."""
+        self.cache = None
+        self.params = None

@@ -1,0 +1,228 @@
+"""The port's CUDA kernels on the card, held against their plain PyTorch
+versions (``repro_torch.kernels.ref``) on the same inputs. Every test needs
+a CUDA card (marker ``cuda``) and skips without one. The file imports
+neither JAX nor the reference package, so it runs where only the port's
+dependencies are installed:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda \
+        tests/test_torch_cuda.py
+
+Inputs come from numpy seeds, in the serving runner's ragged layout
+(tile-aligned spans, pad tokens at pos -1, pages at scattered ids).
+Tolerances: float32 atol = rtol = 1e-5 with TF32 off (both sides sum the
+same float32 terms in another order); a bf16 output row (token, head)
+within 2^-7 of its largest |value| plus 1e-4 (one bf16 rounding moves a
+value by at most 2^-8 of it; the rest is float32 order). Pad rows must be
+exactly 0.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import decode_attention, ops, ragged_attention
+from repro_torch.kernels import ref
+from repro_torch.kernels.ragged_attention import TILE_Q
+
+F32_TOL = dict(atol=1e-5, rtol=1e-5)
+ROW_REL, ROW_ATOL = 2.0 ** -7, 1e-4
+
+# (history, new tokens) per request: decode rows, prefill chunks with and
+# without history, a row with no history at all
+MIXED = [(9, 1), (0, 11), (24, 1), (8, 8), (31, 3), (0, 1)]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _pool(rng, n_pages, bs, hkv, hd):
+    return [torch.from_numpy(rng.randn(n_pages, bs, hkv, hd)
+                             .astype(np.float32)) for _ in range(2)]
+
+
+def _assert_rows_close(got, want):
+    """bf16 ``got`` against float32 ``want``, each output row held by its
+    own size."""
+    d = (got.float() - want).abs().amax(-1)
+    lim = ROW_REL * want.abs().amax(-1) + ROW_ATOL
+    assert bool((d <= lim).all()), float((d / lim).max())
+
+
+def _ragged(specs, hq, hkv, hd, bs, seed=0):
+    rng = np.random.RandomState(seed)
+    nb = max(-(-(h + n) // bs) for h, n in specs) + 1
+    n_pages = len(specs) * nb + 1                      # + the trash page
+    tables = rng.permutation(n_pages - 1).astype(np.int32).reshape(
+        len(specs), nb)
+    rows, poss = [], []
+    for r, (h, n) in enumerate(specs):
+        na = -(-n // TILE_Q) * TILE_Q
+        rows += [r] * na
+        poss += list(range(h, h + n)) + [-1] * (na - n)
+    rows += [0] * TILE_Q                               # an all-pad tile
+    poss += [-1] * TILE_Q
+    k, v = _pool(rng, n_pages, bs, hkv, hd)
+    q = torch.from_numpy(rng.randn(len(rows), hq, hd).astype(np.float32))
+    return (q, k, v, torch.from_numpy(tables),
+            torch.tensor(rows, dtype=torch.int32),
+            torch.tensor(poss, dtype=torch.int32))
+
+
+def _decode(lens, hq, hkv, hd, bs, seed=0):
+    rng = np.random.RandomState(seed)
+    b = len(lens)
+    nb = -(-max(lens) // bs) + 1
+    n_pages = b * nb + 1
+    tables = rng.permutation(n_pages - 1)[:b * nb].astype(np.int32)
+    k, v = _pool(rng, n_pages, bs, hkv, hd)
+    q = torch.from_numpy(rng.randn(b, 1, hq, hd).astype(np.float32))
+    return (q, k, v, torch.from_numpy(tables.reshape(b, nb)),
+            torch.tensor(lens, dtype=torch.int32))
+
+
+def _to(dev, args):
+    return [a.to(dev) for a in args]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,bs", [(16, 4), (16, 16), (64, 8), (128, 16),
+                                   (128, 32)])
+@pytest.mark.parametrize("group", [1, 2, 4])
+def test_cuda_ragged_f32_matches_plain(cuda, group, hd, bs):
+    """(128, 32) f32 pages hold more vectors than the loader keeps in
+    flight, so its tail load runs too."""
+    args = _to(cuda, _ragged(MIXED, 2 * group, 2, hd, bs))
+    ops.reset_launch_counts()
+    got = ragged_attention.ragged_paged_attention(*args)
+    assert ops.launch_counts()["ragged_paged_attention"] == 1
+    want = ref.ragged_paged_attention_reference(*args)
+    torch.testing.assert_close(got, want, **F32_TOL)
+    assert bool((got[args[5] < 0] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float16])
+def test_cuda_ragged_bf16_matches_plain(cuda, kv_dtype):
+    q, k, v, tb, row, pos = _to(cuda, _ragged(MIXED, 32, 8, 128, 16, seed=1))
+    q, k, v = q.bfloat16(), k.to(kv_dtype), v.to(kv_dtype)
+    got = ragged_attention.ragged_paged_attention(q, k, v, tb, row, pos)
+    assert got.dtype == torch.bfloat16
+    want = ref.ragged_paged_attention_reference(q.float(), k.float(),
+                                                v.float(), tb, row, pos)
+    _assert_rows_close(got, want)
+    assert bool((got[pos < 0] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,bs,group", [(16, 4, 2), (128, 16, 4)])
+def test_cuda_ragged_int8_matches_plain(cuda, hd, bs, group):
+    q, k, v, tb, row, pos = _to(cuda, _ragged(MIXED, 2 * group, 2, hd, bs,
+                                              seed=2))
+    kq, ks, kz = ref.quantize_kv(k)
+    vq, vs, vz = ref.quantize_kv(v)
+    quant = {"k_scale": ks, "k_zero": kz, "v_scale": vs, "v_zero": vz}
+    ops.reset_launch_counts()
+    got = ragged_attention.ragged_paged_attention(q, kq, vq, tb, row, pos,
+                                                  kv_quant=quant)
+    assert ops.launch_counts()["ragged_paged_attention_q8"] == 1
+    want = ref.ragged_paged_attention_reference(q, kq, vq, tb, row, pos,
+                                                kv_quant=quant)
+    torch.testing.assert_close(got, want, **F32_TOL)
+    assert bool((got[pos < 0] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,bs", [(16, 4), (64, 16), (128, 16)])
+@pytest.mark.parametrize("group", [1, 2, 4])
+def test_cuda_paged_decode_matches_plain(cuda, group, hd, bs):
+    args = _to(cuda, _decode([37, 1, 0, 50, 16], 2 * group, 2, hd, bs))
+    ops.reset_launch_counts()
+    got = decode_attention.paged_decode_attention(*args)
+    assert ops.launch_counts()["paged_decode_attention"] == 1
+    want = ref.paged_decode_attention_reference(*args)
+    torch.testing.assert_close(got, want, **F32_TOL)
+    assert bool((got[2] == 0).all())                  # kv_len 0
+
+
+@pytest.mark.cuda
+def test_cuda_paged_decode_bf16_matches_plain(cuda):
+    q, k, v, tb, kl = _to(cuda, _decode([1024, 777, 300, 1], 32, 8, 128, 16,
+                                        seed=3))
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    got = decode_attention.paged_decode_attention(q, k, v, tb, kl)
+    want = ref.paged_decode_attention_reference(q.float(), k.float(),
+                                                v.float(), tb, kl)
+    _assert_rows_close(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_masked_keys_never_reach_the_sum(cuda):
+    """NaN past every token's span (the trash page, the rest of a last
+    page) must not leak: masked keys are skipped, not multiplied by 0."""
+    q, k, v, tb, row, pos = _ragged(MIXED, 4, 2, 16, 4)
+    v[-1] = float("nan")
+    for r, (h, n) in enumerate(MIXED):                # the rest of each page
+        last = h + n - 1
+        k[tb[r, last // 4], last % 4 + 1:] = float("nan")
+        v[tb[r, last // 4], last % 4 + 1:] = float("nan")
+    out = ragged_attention.ragged_paged_attention(
+        *_to(cuda, (q, k, v, tb, row, pos)))
+    assert bool(torch.isfinite(out).all())
+    q, k, v, tb, kl = _decode([5, 9], 4, 2, 16, 4)
+    for b, n in enumerate(kl.tolist()):               # the rest of each page
+        k[tb[b, n // 4], n % 4:] = float("nan")
+        v[tb[b, n // 4], n % 4:] = float("nan")
+    out = decode_attention.paged_decode_attention(*_to(cuda, (q, k, v, tb,
+                                                              kl)))
+    assert bool(torch.isfinite(out).all())
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    q, k, v, tb, row, pos = _to(cuda, _ragged([(3, 1)], 4, 2, 16, 4))
+    with pytest.raises(ValueError, match="head_dim"):
+        ragged_attention.ragged_paged_attention(q[..., :8].contiguous(),
+                                                k[..., :8].contiguous(),
+                                                v[..., :8].contiguous(), tb,
+                                                row, pos)
+    with pytest.raises(ValueError, match="kv_quant"):
+        ragged_attention.ragged_paged_attention(q, k.to(torch.int8),
+                                                v.to(torch.int8), tb, row,
+                                                pos)
+    odd = torch.empty(k.numel() + 1, device=cuda)[1:].view(k.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        ragged_attention.ragged_paged_attention(q, odd, v, tb, row, pos)
+    with pytest.raises(ValueError, match="contiguous"):
+        decode_attention.paged_decode_attention(
+            q[:1, None].transpose(2, 3), k, v, tb,
+            torch.ones(1, dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_cuda_model_prefill_matches_cpu(cuda, kv_dtype):
+    """``Model.prefill`` through the kernels on the card against the same
+    call on the CPU (plain versions), one sequence, float32 smoke model."""
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.models.model import Model
+    m = Model(smoke_variant(get_config("granite-3-8b")))
+    params = m.init(torch.Generator().manual_seed(0), device="cpu")
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, m.cfg.vocab, (1, 13)).astype(np.int32))
+    want, _ = m.prefill(params, tokens, 32, page_size=4, kv_dtype=kv_dtype)
+    ops.reset_launch_counts()
+    got, _ = m.prefill({k: _tree_to(v, cuda) for k, v in params.items()},
+                       tokens.to(cuda), 32, page_size=4, kv_dtype=kv_dtype)
+    assert sum(ops.launch_counts().values()) == m.cfg.n_layers
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)

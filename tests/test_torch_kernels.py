@@ -1,0 +1,211 @@
+"""The port's kernel layer held against the reference on the CPU.
+
+The plain PyTorch versions of the two CUDA kernels (``repro_torch.kernels
+.ref``, reached through ``ops`` on CPU tensors) must match the JAX oracles
+and the Pallas kernel bodies run in interpret mode, over GQA group 1/2/4,
+page size 4/16, and mixed ragged batches of prefill chunks with history,
+decode rows and pad rows. Tolerance: atol = rtol = 1e-5 in float32 (both
+sides sum the same float32 terms in another order). Pad rows are exactly 0
+and int8 quantization matches byte for byte.
+
+The CUDA kernels themselves run only on the card: ``test_torch_cuda.py``
+(marker ``cuda``) holds them against these plain versions and skips here;
+``chip_smoke.py`` does so at the main path's shapes.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import decode_attention as jda
+from repro.kernels import ragged_attention as jra
+from repro.kernels import ref as jref
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels.ragged_attention import TILE_Q
+
+HD = 16
+TOL = dict(atol=1e-5, rtol=1e-5)
+
+# the JAX oracles, compiled whole (eager dispatch compiles op by op)
+j_ragged = jax.jit(jref.ragged_paged_attention_reference)
+j_decode = jax.jit(jref.paged_decode_attention_reference)
+
+
+def _ragged(specs, hkv, group, bs, seed=0):
+    """specs: per request (hist, new): `new` query tokens at positions
+    [hist, hist+new) over a pool holding all hist+new rows. numpy arrays
+    in the runner's layout (tile-aligned spans, pos -1 pads, a trailing
+    all-pad tile), pages at scattered ids."""
+    rng = np.random.RandomState(seed)
+    hq = hkv * group
+    nb = max(-(-(h + n) // bs) for h, n in specs) + 1
+    n_pages = len(specs) * nb + 1
+    perm = rng.permutation(n_pages - 1).astype(np.int32)
+    tables = perm.reshape(len(specs), nb)
+    rows, poss = [], []
+    for r, (h, n) in enumerate(specs):
+        na = -(-n // TILE_Q) * TILE_Q
+        rows += [r] * na
+        poss += list(range(h, h + n)) + [-1] * (na - n)
+    rows += [0] * TILE_Q
+    poss += [-1] * TILE_Q
+    t = len(rows)
+    return dict(
+        q=rng.randn(t, hq, HD).astype(np.float32),
+        k=rng.randn(n_pages, bs, hkv, HD).astype(np.float32),
+        v=rng.randn(n_pages, bs, hkv, HD).astype(np.float32),
+        tables=tables, row=np.asarray(rows, np.int32),
+        pos=np.asarray(poss, np.int32))
+
+
+MATRIX = [
+    ("decode-only", [(9, 1), (17, 1), (3, 1)]),
+    ("decode-hist0", [(0, 1), (0, 1)]),
+    ("chunk-only", [(0, 8), (0, 13)]),
+    ("chunk-hist", [(8, 8), (16, 5)]),
+    ("mixed", [(9, 1), (0, 11), (24, 1), (8, 8), (31, 3)]),
+]
+
+
+def _torch(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _port_ragged(d, kv_quant=None, k="k", v="v"):
+    quant = None if kv_quant is None else {
+        n: _torch(a) for n, a in kv_quant.items()}
+    return ops.ragged_paged_attention(
+        _torch(d["q"]), _torch(d[k]), _torch(d[v]), _torch(d["tables"]),
+        _torch(d["row"]), _torch(d["pos"]), kv_quant=quant).numpy()
+
+
+# every batch shape at GQA group 2 / page 4, and the mixed batch over the
+# whole group x page-size grid
+CASES = ([(name, specs, 2, 4) for name, specs in MATRIX[:-1]]
+         + [(MATRIX[-1][0], MATRIX[-1][1], g, bs)
+            for g in (1, 2, 4) for bs in (4, 16)])
+
+
+@pytest.mark.parametrize("name,specs,group,bs", CASES,
+                         ids=[f"{c[0]}-g{c[2]}-bs{c[3]}" for c in CASES])
+def test_ragged_plain_matches_jax_oracle(name, specs, group, bs):
+    d = _ragged(specs, 2, group, bs)
+    want = np.asarray(j_ragged(
+        *(jnp.asarray(d[n]) for n in ("q", "k", "v", "tables", "row",
+                                      "pos"))))
+    got = _port_ragged(d)
+    np.testing.assert_allclose(got, want, **TOL)
+    assert np.all(got[d["pos"] < 0] == 0.0)
+
+
+@pytest.mark.parametrize("name,specs", [MATRIX[0], MATRIX[4]],
+                         ids=["decode-only", "mixed"])
+@pytest.mark.parametrize("group", [1, 4])
+def test_ragged_plain_matches_pallas_interpret(name, specs, group):
+    d = _ragged(specs, 2, group, 4)
+    want = np.asarray(jra.ragged_paged_attention(
+        *(jnp.asarray(d[n]) for n in ("q", "k", "v", "tables", "row",
+                                      "pos")), interpret=True))
+    np.testing.assert_allclose(_port_ragged(d), want, **TOL)
+
+
+def test_quantize_kv_byte_for_byte():
+    rng = np.random.RandomState(1)
+    x = (rng.randn(64, 8, 2, HD) * 3.0).astype(np.float32)
+    x[0, 0, 0] = 0.0                              # a constant row
+    jq, js, jz = (np.asarray(a) for a in jref.quantize_kv(jnp.asarray(x)))
+    tq, ts, tz = (a.numpy() for a in tref.quantize_kv(_torch(x)))
+    assert tq.dtype == np.int8 and np.array_equal(tq, jq)
+    assert np.array_equal(ts, js) and np.array_equal(tz, jz)
+    back = tref.dequantize_kv(_torch(tq), _torch(ts), _torch(tz)).numpy()
+    np.testing.assert_array_equal(
+        back, np.asarray(jref.dequantize_kv(jnp.asarray(jq),
+                                            jnp.asarray(js),
+                                            jnp.asarray(jz))))
+
+
+@pytest.mark.parametrize("group", [1, 4])
+def test_ragged_int8_matches_jax(group):
+    d = _ragged(MATRIX[4][1], 2, group, 4)
+    kq, ks, kz = (np.asarray(a) for a in jref.quantize_kv(jnp.asarray(d["k"])))
+    vq, vs, vz = (np.asarray(a) for a in jref.quantize_kv(jnp.asarray(d["v"])))
+    d.update(kq=kq, vq=vq)
+    quant = {"k_scale": ks, "k_zero": kz, "v_scale": vs, "v_zero": vz}
+    jargs = [jnp.asarray(d[n]) for n in ("q", "kq", "vq", "tables", "row",
+                                         "pos")]
+    jquant = {n: jnp.asarray(a) for n, a in quant.items()}
+    want = np.asarray(j_ragged(
+        *jargs, kv_quant=jquant))
+    got = _port_ragged(d, kv_quant=quant, k="kq", v="vq")
+    np.testing.assert_allclose(got, want, **TOL)
+    interp = np.asarray(jra.ragged_paged_attention(*jargs, kv_quant=jquant,
+                                                   interpret=True))
+    np.testing.assert_allclose(got, interp, **TOL)
+    assert np.all(got[d["pos"] < 0] == 0.0)
+
+
+def _decode(lens, hkv, group, bs, seed=0):
+    rng = np.random.RandomState(seed)
+    b = len(lens)
+    nb = -(-max(lens) // bs) + 1
+    n_pages = b * nb + 1
+    tables = rng.permutation(n_pages - 1)[:b * nb].reshape(b, nb)
+    return dict(
+        q=rng.randn(b, 1, hkv * group, HD).astype(np.float32),
+        k=rng.randn(n_pages, bs, hkv, HD).astype(np.float32),
+        v=rng.randn(n_pages, bs, hkv, HD).astype(np.float32),
+        tables=tables.astype(np.int32),
+        kv_len=np.asarray(lens, np.int32))
+
+
+@pytest.mark.parametrize("group,bs", [(1, 4), (2, 16), (4, 4)])
+def test_paged_decode_plain_matches_jax(group, bs):
+    d = _decode([37, 1, 16, 50], 2, group, bs)
+    args = [d[n] for n in ("q", "k", "v", "tables", "kv_len")]
+    got = ops.paged_decode_attention(*map(_torch, args)).numpy()
+    want = np.asarray(j_decode(
+        *map(jnp.asarray, args)))
+    np.testing.assert_allclose(got, want, **TOL)
+    if bs == 4:
+        interp = np.asarray(jda.paged_decode_attention(
+            *map(jnp.asarray, args), interpret=True))
+        np.testing.assert_allclose(got, interp, **TOL)
+
+
+def test_paged_decode_empty_row_is_zero():
+    d = _decode([0, 5], 2, 2, 4)
+    args = [d[n] for n in ("q", "k", "v", "tables", "kv_len")]
+    got = ops.paged_decode_attention(*map(_torch, args)).numpy()
+    assert np.all(got[0] == 0.0)
+    want = np.asarray(j_decode(
+        *map(jnp.asarray, args)))
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_masked_keys_never_reach_the_sum():
+    """NaN in a pool row past every token's span must not leak into any
+    output: masked keys are dropped, not multiplied by p = 0."""
+    d = _ragged(MATRIX[4][1], 2, 2, 4)
+    d["v"] = d["v"].copy()
+    d["v"][-1] = np.nan                           # the trash page
+    got = _port_ragged(d)
+    assert np.isfinite(got).all()
+    dd = _decode([5, 9], 2, 2, 4)
+    dd["v"][-1] = np.nan
+    args = [dd[n] for n in ("q", "k", "v", "tables", "kv_len")]
+    out = ops.paged_decode_attention(*map(_torch, args))
+    assert bool(torch.isfinite(out).all())
+
+
+def test_ops_counts_only_kernel_launches():
+    """The CPU path is the plain version: no kernel launch is counted."""
+    ops.reset_launch_counts()
+    d = _ragged(MATRIX[0][1], 2, 2, 4)
+    _port_ragged(d)
+    assert all(v == 0 for v in ops.launch_counts().values())
+    assert set(ops.launch_counts()) == {"ragged_paged_attention",
+                                        "ragged_paged_attention_q8",
+                                        "paged_decode_attention"}

@@ -1,0 +1,134 @@
+"""The PyTorch port stands alone: importing it loads neither JAX nor the
+reference package, no file of it imports either, and its entry points
+default to the card instead of dropping to the CPU."""
+
+import ast
+import importlib
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import resolve_device
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+PKG = SRC / "repro_torch"
+
+
+def _modules():
+    import repro_torch
+    return sorted(m.name for m in pkgutil.walk_packages(
+        repro_torch.__path__, "repro_torch."))
+
+
+def test_import_leaves_jax_and_reference_unloaded():
+    # a subprocess: conftest.py has already imported jax in this one
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,"
+        " 'repro_torch.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m.startswith('jaxlib') or m == 'repro'"
+        " or m.startswith('repro.')]\n"
+        "print(len(mods), bad)\n"
+        "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env={"PYTHONPATH": str(SRC),
+                                         "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr
+    n = int(out.stdout.split()[0])
+    assert n >= 20, out.stdout
+
+
+def test_no_file_imports_jax_or_reference():
+    files = sorted(PKG.rglob("*.py"))
+    assert len(files) >= 20
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text())):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            for n in names:
+                root = n.split(".")[0]
+                assert root not in ("jax", "jaxlib", "repro"), \
+                    f"{f.relative_to(SRC)} imports {n}"
+
+
+@pytest.mark.parametrize("module", _modules())
+def test_every_module_imports(module):
+    importlib.import_module(module)
+
+
+def _cfg():
+    from repro_torch.configs import get_config, smoke_variant
+    return smoke_variant(get_config("granite-3-8b"))
+
+
+def test_default_device_is_the_card(monkeypatch):
+    """Without CUDA the default raises; it never runs on the CPU."""
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.worker import StageWorker
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = _cfg()
+    params = Model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(cfg, [params])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        StageWorker(cfg, params, 1, 0, 2, 32, n_pages=5, page_size=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Model(cfg).init()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_numpy({"w": np.zeros(3, np.float32)})
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_params_must_sit_on_the_engine_device():
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import Engine
+
+    cfg = _cfg()
+    params = Model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    params["final_norm"] = params["final_norm"].to("meta")
+    with pytest.raises(ValueError, match="stage params"):
+        Engine(cfg, [params], device="cpu")
+
+
+def test_cpu_kernel_wrappers_refuse_cpu_tensors():
+    """The CUDA wrappers take CUDA tensors only: the plain version is
+    reached through ops' dispatch on a CPU tensor, never by a fallback."""
+    from repro_torch.kernels import decode_attention, ragged_attention
+
+    q = torch.zeros(8, 4, 16)
+    pages = torch.zeros(3, 4, 2, 16)
+    tables = torch.zeros(1, 2, dtype=torch.int32)
+    idx = torch.zeros(8, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ragged_attention.ragged_paged_attention(q, pages, pages, tables,
+                                                idx, idx)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        decode_attention.paged_decode_attention(
+            q[:1, None], pages, pages, tables,
+            torch.ones(1, dtype=torch.int32))
+
+
+def test_not_ported_options_raise():
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import Engine
+
+    cfg = _cfg()
+    params = Model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    for kw in ({"paged": False}, {"kv_tier": object(), "prefix_cache": True},
+               {"sanitize": True}):
+        with pytest.raises(NotImplementedError):
+            Engine(cfg, [params], device="cpu", **kw)
