@@ -3,6 +3,7 @@
 NVIDIA H100.
 
     python3 chip_smoke.py            # build, kernel checks, full-width serve
+                                     # and cold start
     python3 chip_smoke.py --quick    # build and kernel checks only
 
 Run from the root of a checkout. Phases:
@@ -13,14 +14,17 @@ Run from the root of a checkout. Phases:
 2. kernels: each CUDA kernel at the main path's shapes (Hq 32, Hkv 8,
    hd 128, page 16) against its plain PyTorch version in float32 on the
    same inputs: the ragged kernel on a mixed batch (two prefill chunks with
-   history, four decode rows, pad tiles) with bf16, fp16 and int8 pages
-   and the paged decode kernel at batch 4 with kv_len up to 1,024, each
-   output row (token, head) held to 2^-7 of its largest |value| plus 1e-4
-   (bf16 output rounding is at most 2^-8 of it); and an f32 case of each
-   at hd 16 held to 1e-5 with TF32 off. Times (CUDA events, median of repeats, L2
-   flushed before each) of the kernel, its plain version and one PyTorch
-   library call for the same function (SDPA on gathered K/V, never called
-   by the port), beside the least time the card could take.
+   history, four decode rows, pad tiles) with bf16, fp16 and int8 pages,
+   the paged decode kernel at batch 4 with kv_len up to 1,024, flash
+   attention at batch 1, causal, Sq = Sk = 300 and 412, and the contiguous
+   decode kernel at batch 4, S 1,024, kv_len 1,024/777/300/1 (and a
+   kv_len 0 row, exactly 0), each output row (token, head) held to 2^-7 of
+   its largest |value| plus 1e-4 (bf16 output rounding is at most 2^-8 of
+   it); and f32 cases at hd 16 held to 1e-5 with TF32 off. Times (CUDA
+   events, median of repeats, L2 flushed before each) of the kernel, its
+   plain version and one PyTorch library call for the same function (SDPA
+   on gathered K/V, never called by the port), beside the least time the
+   card could take.
 3. serve: full-depth, full-width granite-3-8b (40 layers, d 4096, bf16) on
    random weights from a seeded generator. A ``ServingEndpoint`` over a
    2-stage paged engine serves 4 requests (prefill_chunk 256, max_new 32),
@@ -36,6 +40,26 @@ Run from the root of a checkout. Phases:
    than twice as far as the bf16 kernel's from its own. In the 1-stage and int8 runs, four
    decode steps run under ``torch.profiler`` (device time per step, the
    kernels that take it) and are left out of the step timings.
+4. cold start, the main path of the slot-contiguous layout: a
+   ``ServerlessFrontend`` over 4 servers deploys full-width, full-depth
+   granite-3-8b (random bf16 weights from a seeded generator) into the
+   memory tier, cold-starts it to 2 stages (Alg. 1, streamed stage loads
+   out of the store, ``paged=False``), serves the same 4 requests and
+   consolidates through ``full_params`` after 4 tokens. Its streams must
+   equal a 1-stage contiguous engine's on the same weights; its launches
+   must show flash and contiguous decode > 0 and both paged kernels at 0.
+   Printed: the Alg. 1 scheme, the cold-start timeline (simulated clock),
+   the measured wall time and GB/s of each stage's ``materialize()`` and of
+   ``full_params`` (host -> card), serve rates, a profiled window, and the
+   share of tokens on which the contiguous streams agree with a paged
+   engine's. Where they part, the logits at the first diverging token
+   from one prefill of the shared context on each layout: the contiguous
+   top-2 margin there beside how far the layout moves the logits
+   (reported, not asserted).
+5. disk tier: full width, depth cut to 4 layers. A store written by
+   ``deploy(..., store_dir=...)`` (inside the checkout, deleted after) is
+   cold-deployed (``params=None``) by a second frontend, which must serve
+   the memory tier's streams on the same weights.
 
 Any failed check raises, and the script exits nonzero without a result
 line. On success the second-to-last line is the ``kernels`` JSON (the
@@ -63,6 +87,7 @@ F32_FLOPS = 67e12                 # H100 SXM float32, outside tensor cores
 
 Hq, HKV, HD, BS = 32, 8, 128, 16  # granite-3-8b attention at full width
 PROFILE_AT = 16                   # a decode step of the serve phase
+MAX_NEW = 32                      # tokens each request generates
 
 
 def log(*a):
@@ -224,8 +249,31 @@ def check_rows(name, got, want):
     return err, ratio
 
 
+def sdpa_flash(torch, q, k, v):
+    """One causal SDPA call on (B,H,S,hd) layouts with K/V heads repeated
+    to Hq (made before timing)."""
+    import torch.nn.functional as F
+    rep = q.shape[2] // k.shape[2]
+    qq = q.transpose(1, 2).contiguous()
+    kk = k.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous()
+    vv = v.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous()
+    return lambda: F.scaled_dot_product_attention(qq, kk, vv, is_causal=True)
+
+
+def sdpa_contig_decode(torch, q, k, v, kv_len):
+    import torch.nn.functional as F
+    rep = q.shape[2] // k.shape[2]
+    kk = k.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous()
+    vv = v.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous()
+    mask = (torch.arange(k.shape[1], device="cuda")[None, :]
+            < kv_len.long()[:, None])[:, None, None, :]
+    qq = q.transpose(1, 2).contiguous()                     # (B,Hq,1,hd)
+    return lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask)
+
+
 def kernel_phase(torch, quick):
     from repro_torch.kernels import decode_attention as kda
+    from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import ragged_attention as kra
     from repro_torch.kernels import ref
 
@@ -330,6 +378,84 @@ def kernel_phase(torch, quick):
                            reps, flush=flush),
         bound_ms=b_ms, bound_by=b_by, max_abs_err=err[0],
         err_over_tol=err[1])
+
+    # -- flash attention over contiguous K/V: f32 at hd 16 (TF32 off), then
+    # the main path's prefills (batch 1, causal, Sq = Sk = a prompt)
+    g4 = torch.Generator(device="cuda").manual_seed(4)
+
+    def qkv(b, sq, sk, hq, hkv, hd, dtype):
+        return [torch.randn((b, n, h, hd), generator=g4, device="cuda")
+                .to(dtype) for n, h in ((sq, hq), (sk, hkv), (sk, hkv))]
+
+    q, k, v = qkv(2, 45, 45, 4, 2, 16, torch.float32)
+    check("flash f32 hd16 causal", kfa.flash_attention(q, k, v),
+          ref.mha_reference(q, k, v), 1e-5)
+    q, k, v = qkv(1, 20, 37, 4, 2, 16, torch.float32)
+    check("flash f32 hd16 causal q_offset 17",
+          kfa.flash_attention(q, k, v, q_offset=17),
+          ref.mha_reference(q, k, v, q_offset=17), 1e-5)
+    check("flash f32 hd16 non-causal",
+          kfa.flash_attention(q, k, v, causal=False),
+          ref.mha_reference(q, k, v, causal=False), 1e-5)
+    flash = {}
+    for sq in (300, 412):
+        q, k, v = qkv(1, sq, sq, Hq, HKV, HD, torch.bfloat16)
+        err = check_rows(f"flash bf16 Sq=Sk={sq}",
+                         kfa.flash_attention(q, k, v),
+                         ref.mha_reference(q.float(), k.float(), v.float()))
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        flops = 4 * Hq * HD * sq * (sq + 1) // 2
+        b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS)
+        flash[sq] = dict(
+            ms=time_ms(torch, lambda: kfa.flash_attention(q, k, v), reps,
+                       flush=flush),
+            plain_ms=time_ms(torch, lambda: ref.mha_reference(q, k, v),
+                             reps, flush=flush),
+            library_ms=time_ms(torch, sdpa_flash(torch, q, k, v), reps,
+                               flush=flush),
+            bound_ms=b_ms, bound_by=b_by, max_abs_err=err[0],
+            err_over_tol=err[1])
+        log(f"  flash Sq=Sk={sq}: {flash[sq]}")
+    rows["flash_attention"] = flash[412]
+
+    # -- decode over contiguous caches: f32 at hd 16, then batch 4 at S 1024
+    def contig(hq, hkv, hd, s, lens, dtype):
+        qq, kk, vv = qkv(len(lens), 1, s, hq, hkv, hd, dtype)
+        return qq, kk, vv, torch.tensor(lens, dtype=torch.int32,
+                                        device="cuda")
+
+    qd, kc, vc, kl = contig(4, 2, 16, 64, [37, 1, 0, 64], torch.float32)
+    check("decode (contiguous) f32 hd16",
+          kda.decode_attention(qd, kc, vc, kl),
+          ref.decode_attention_reference(qd, kc, vc, kl), 1e-5)
+    lens = [1024, 777, 300, 1]
+    qd, kc, vc, kl = contig(Hq, HKV, HD, 1024, lens, torch.bfloat16)
+    err = check_rows("decode (contiguous) bf16 caches",
+                     kda.decode_attention(qd, kc, vc, kl),
+                     ref.decode_attention_reference(
+                         qd.float(), kc.float(), vc.float(), kl))
+    empty = kda.decode_attention(qd[:1].contiguous(), kc[:1].contiguous(),
+                                 vc[:1].contiguous(),
+                                 torch.zeros(1, dtype=torch.int32,
+                                             device="cuda"))
+    torch.cuda.synchronize()
+    if not bool((empty == 0).all()):
+        raise AssertionError("decode (contiguous): a kv_len 0 row is not 0")
+    log("  decode (contiguous) kv_len 0 row: exactly 0")
+    nbytes = (sum(lens) * 2 * HKV * HD * 2 + 2 * qd.numel() * 2
+              + kl.numel() * 4)
+    flops = sum(4 * Hq * HD * n for n in lens)
+    b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS)
+    rows["decode_attention"] = dict(
+        ms=time_ms(torch, lambda: kda.decode_attention(qd, kc, vc, kl), reps,
+                   flush=flush),
+        plain_ms=time_ms(torch, lambda: ref.decode_attention_reference(
+            qd, kc, vc, kl), reps, flush=flush),
+        library_ms=time_ms(torch, sdpa_contig_decode(torch, qd, kc, vc, kl),
+                           reps, flush=flush),
+        bound_ms=b_ms, bound_by=b_by, max_abs_err=err[0],
+        err_over_tol=err[1])
+
     for name, r in rows.items():
         log(f"  {name}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "
             f"{r['bound_by']}, plain {r['plain_ms']:.4f} ms, library "
@@ -342,23 +468,23 @@ def kernel_phase(torch, quick):
 # ---------------------------------------------------------------------------
 
 
-def drive(torch, ep, prompts, consolidate_after=None, full=None,
+def drive(torch, ep, prompts, consolidate_after=None, consolidate=None,
           profile_at=None):
     """Serve ``prompts`` through ``ep`` to the end, timing each step (host
     clock around a synchronised step). With ``consolidate_after``, the
-    endpoint is consolidated onto ``full`` once every request has that
-    many tokens. With ``profile_at``, the steps from that index on run
+    endpoint is consolidated by ``consolidate()`` once every request has
+    that many tokens. With ``profile_at``, the steps from that index on run
     under the profiler (``profile_steps``) instead of the clock. Returns
     (streams, per-step records, profile or None)."""
     from repro_torch.serving.api import SamplingParams
-    reqs = [ep.submit(p, SamplingParams(max_new=32)) for p in prompts]
+    reqs = [ep.submit(p, SamplingParams(max_new=MAX_NEW)) for p in prompts]
     steps, prof = [], None
     while ep.has_work():
         if (consolidate_after is not None and ep.n_stages > 1
                 and all(len(r.generated) >= consolidate_after
                         for r in reqs)):
             t0 = time.perf_counter()
-            ep.consolidate(full)
+            consolidate()
             torch.cuda.synchronize()
             log(f"  consolidated 2 -> 1 stage in "
                 f"{(time.perf_counter() - t0) * 1e3:.1f} ms, "
@@ -451,6 +577,39 @@ def divergence_witness(torch, model, params, prompts, streams, q8_streams):
     return records
 
 
+def layout_witness(torch, model, params, prompts, streams, pg_streams):
+    """Where a request's slot-contiguous stream leaves its paged stream, the
+    logits at the first diverging token from one prefill of the prompt and
+    the tokens both streams share, on each layout (flash kernel into
+    contiguous slabs; ragged kernel into paged pools). Returns one record
+    per request; margins and shifts are in logits, over the real
+    vocabulary. Reported, not asserted."""
+    vocab = model.cfg.vocab
+    device = params["final_norm"].device
+    records = []
+    for i, (p, a, b) in enumerate(zip(prompts, streams, pg_streams)):
+        j = next((n for n, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            records.append({"request": i, "first_diverging": None})
+            continue
+        ctx = torch.tensor([p + a[:j]], dtype=torch.int32, device=device)
+        lc = model.prefill(params, ctx, 1024, paged=False)[0][0, :vocab]
+        lp = model.prefill(params, ctx, 1024, paged=True)[0][0, :vocab]
+        lc, lp = lc.float(), lp.float()
+        top2 = lc.topk(2).values
+        records.append({
+            "request": i, "first_diverging": j, "of": len(a),
+            "contiguous_token": a[j], "paged_token": b[j],
+            "prefill_argmax_contiguous": int(lc.argmax()),
+            "prefill_argmax_paged": int(lp.argmax()),
+            "contiguous_top2_margin": float(top2[0] - top2[1]),
+            "contiguous_gap": float(lc[a[j]] - lc[b[j]]),
+            "logit_std": float(lc.std()),
+            "layout_shift_max": float((lc - lp).abs().max()),
+        })
+    return records
+
+
 def step_stats(steps):
     pre = [(t, n) for t, n, _ in steps if n > 0]
     dec = [(t, e) for t, n, e in steps if n == 0]
@@ -473,8 +632,15 @@ def step_stats(steps):
     }
 
 
-def serve_phase(torch):
+def main_prompts(vocab):
+    """The four requests of every serve: prompts of 300, 257, 412 and 190
+    tokens from a seeded generator."""
     import numpy as np
+    rng = np.random.RandomState(0)
+    return [rng.randint(0, vocab, n).tolist() for n in (300, 257, 412, 190)]
+
+
+def serve_phase(torch):
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models.attention import paged_kv_token_bytes
@@ -493,9 +659,7 @@ def serve_phase(torch):
         f"{n_params / 1e9:.3f} B params in {cfg.dtype}, drawn in "
         f"{time.perf_counter() - t0:.1f} s; "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
-    rng = np.random.RandomState(0)
-    prompts = [rng.randint(0, cfg.vocab, n).tolist()
-               for n in (300, 257, 412, 190)]
+    prompts = main_prompts(cfg.vocab)
     kw = dict(max_batch=4, max_seq=1024, block_size=16, paged=True,
               prefill_chunk=256, device="cuda")
     results = {}
@@ -505,7 +669,7 @@ def serve_phase(torch):
     ep = ServingEndpoint(Engine(cfg, stages, **kw))
     ops.reset_launch_counts()
     streams, steps, _ = drive(torch, ep, prompts, consolidate_after=4,
-                              full=params)
+                              consolidate=lambda: ep.consolidate(params))
     torch.cuda.synchronize()
     main_counts = ops.launch_counts()
     if ep.n_stages != 1:
@@ -525,7 +689,7 @@ def serve_phase(torch):
         raise AssertionError(f"2-stage + consolidation streams differ from "
                              f"the 1-stage engine's:\n{streams}\n"
                              f"{ref_streams}")
-    if not all(len(s) == 32 and all(0 <= t < cfg.vocab for t in s)
+    if not all(len(s) == MAX_NEW and all(0 <= t < cfg.vocab for t in s)
                for s in streams):
         raise AssertionError(f"bad streams {streams}")
     log("  streams: 2-stage + consolidation == 1-stage engine "
@@ -544,7 +708,7 @@ def serve_phase(torch):
     log(f"  launches on the int8 path: {q8_counts}")
     if q8_counts["ragged_paged_attention_q8"] <= 0:
         raise AssertionError("the int8 ragged body never launched")
-    if not all(len(s) == 32 for s in q8_streams):
+    if not all(len(s) == MAX_NEW for s in q8_streams):
         raise AssertionError(f"bad int8 streams {q8_streams}")
     agree = sum(a == b for s, r in zip(q8_streams, streams)
                 for a, b in zip(s, r)) / sum(len(s) for s in streams)
@@ -603,6 +767,242 @@ def serve_phase(torch):
                 q8_counts["ragged_paged_attention_q8"]}
 
 
+# ---------------------------------------------------------------------------
+# phases 4-5: cold start through the ServerlessFrontend, slot-contiguous
+# ---------------------------------------------------------------------------
+
+
+SERVE_KW = dict(max_batch=4, max_seq=1024)
+
+
+def frontend(torch):
+    """``examples/quickstart.py``'s cluster: 4 servers of one card each
+    (16 Gbps NIC, 12 GB/s PCIe, the H100's 80 GB), all on this card."""
+    from repro_torch.core import GB, Gbps, ServerSpec
+    from repro_torch.serving.endpoint import ServerlessFrontend
+    return ServerlessFrontend({f"srv{i}": ServerSpec(f"srv{i}", 16 * Gbps,
+                                                     12e9, 80 * GB)
+                               for i in range(4)}, device="cuda")
+
+
+def profile_of(model):
+    """Alg. 1's inputs: the model's real byte count, the paper's timing
+    defaults and the quickstart's SLO (simulated clock, not measured)."""
+    from repro_torch.core import ModelProfile, SLO, TimingProfile
+    return ModelProfile(model.cfg.name, model.bytes(), TimingProfile(),
+                        SLO(ttft=7.5, tpot=0.2))
+
+
+def timed(torch, fn, out, label):
+    """``fn`` wrapped to append (label, wall seconds) to ``out``, the card
+    synchronised before and after: the measured host -> card load."""
+    def run(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(*a, **kw)
+        torch.cuda.synchronize()
+        out.append((label, time.perf_counter() - t0))
+        return res
+    return run
+
+
+def cold_start(torch, front, name, loads):
+    """``front.cold_start(name, min_stages=2, paged=False, ...)``, split
+    into ``begin_cold_start`` + ``finish`` only so each stage's
+    ``materialize()`` is timed on the wall clock."""
+    pend = front.begin_cold_start(name, min_stages=2, paged=False,
+                                  **SERVE_KW)
+    for i, st in enumerate(pend.stages):
+        st.materialize = timed(torch, st.materialize, loads, f"stage{i}")
+    return pend.finish()
+
+
+def load_rates(loads, store, s):
+    nbytes = {f"stage{i}": store.stage_bytes(s, i) for i in range(s)}
+    nbytes["full_params"] = store.total_bytes
+    return {label: {"seconds": t, "bytes": nbytes[label],
+                    "GB_per_s": nbytes[label] / t / 1e9}
+            for label, t in loads}
+
+
+def coldstart_phase(torch, prompts):
+    """The main path of the slot-contiguous layout, through the entry
+    points a user calls (``examples/quickstart.py``'s steps) at full width
+    and depth. Returns the flash/decode launch counts of its serve."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+    from repro_torch.serving.endpoint import ServingEndpoint
+    from repro_torch.serving.engine import Engine
+
+    cfg = get_config("granite-3-8b")
+    model = Model(cfg)
+    name = cfg.name
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    front = frontend(torch)
+    t0 = time.perf_counter()
+    store = front.deploy(cfg, params, profile_of(model))
+    deploy_s = time.perf_counter() - t0
+    del params                       # the store's memory tier holds them
+    torch.cuda.empty_cache()
+    log(f"  deployed {store.total_bytes / 2**30:.2f} GiB into the memory "
+        f"tier ({len(store.manifest.chunks)} chunks) in {deploy_s:.1f} s")
+
+    loads = []
+    ep = cold_start(torch, front, name, loads)
+    sch = ep.scheme
+    log(f"  Alg. 1 scheme: s={sch.s} w={sch.w} servers={sch.servers} "
+        f"pred_ttft={sch.predicted_ttft:.3f} s pred_tpot="
+        f"{sch.predicted_tpot:.4f} s slo_ok={sch.slo_ok} -> "
+        f"{ep.n_stages}-stage pipeline")
+    timeline = ep.cold_start_timeline.to_json()
+    for st in timeline["stages"]:
+        log(f"  cold-start timeline (simulated clock), stage {st['stage']}"
+            f" on {st['server']}: ready {st['ready']:.3f} s, spans "
+            + ", ".join(f"{k} {a:.3f}-{b:.3f}"
+                        for k, (a, b) in st["spans"].items()))
+    if ep.n_stages != 2 or ep.paged:
+        raise AssertionError("expected a 2-stage slot-contiguous endpoint")
+
+    front.full_params = timed(torch, front.full_params, loads, "full_params")
+    ops.reset_launch_counts()
+    streams, steps, _ = drive(torch, ep, prompts, consolidate_after=4,
+                              consolidate=lambda: front.consolidate(ep, name))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    log(f"  launches on the cold-start path: {counts}")
+    if ep.n_stages != 1:
+        raise AssertionError("endpoint was not consolidated")
+    for k in ("flash_attention", "decode_attention"):
+        if counts[k] <= 0:
+            raise AssertionError(f"{k} never launched on the cold-start path")
+    for k in ("ragged_paged_attention", "ragged_paged_attention_q8",
+              "paged_decode_attention"):
+        if counts[k] != 0:
+            raise AssertionError(f"{k} launched on the contiguous path")
+    if ep.last_migration_bytes is not None:
+        raise AssertionError("a contiguous consolidation counts no bytes")
+    rates = load_rates(loads, store, 2)
+    for label, r in rates.items():
+        log(f"  measured wall time of {label} (host -> card): "
+            f"{r['seconds']:.3f} s for {r['bytes'] / 2**30:.2f} GiB, "
+            f"{r['GB_per_s']:.2f} GB/s")
+    results = {"2-stage -> consolidated, contiguous": step_stats(steps)}
+
+    full = ep.engine.workers[0].params
+    one = ServingEndpoint(Engine(cfg, [full], paged=False, device="cuda",
+                                 **SERVE_KW))
+    one_streams, one_steps, one_prof = drive(torch, one, prompts,
+                                             profile_at=PROFILE_AT)
+    results["1-stage, contiguous"] = step_stats(one_steps)
+    if streams != one_streams:
+        raise AssertionError(f"cold start + consolidation streams differ "
+                             f"from the 1-stage contiguous engine's:\n"
+                             f"{streams}\n{one_streams}")
+    if not all(len(s) == MAX_NEW and all(0 <= t < cfg.vocab for t in s)
+               for s in streams):
+        raise AssertionError(f"bad streams {streams}")
+    log("  streams: cold start 2-stage + consolidation == 1-stage "
+        f"contiguous engine (first request: {streams[0][:8]} ...)")
+    del one
+    paged = ServingEndpoint(Engine(cfg, [full], paged=True, block_size=16,
+                                   prefill_chunk=256, device="cuda",
+                                   **SERVE_KW))
+    pg_streams, pg_steps, pg_prof = drive(torch, paged, prompts,
+                                          profile_at=PROFILE_AT)
+    results["1-stage, paged (same call)"] = step_stats(pg_steps)
+    agree = sum(a == b for s, r in zip(streams, pg_streams)
+                for a, b in zip(s, r)) / sum(len(s) for s in streams)
+    log(f"  contiguous streams agree with the paged engine's on "
+        f"{agree:.3f} of tokens (not asserted)")
+    del paged, ep
+    witness = layout_witness(torch, model, full, prompts, streams, pg_streams)
+    for w in witness:
+        log(f"  contiguous vs paged stream, first divergence: {w}")
+    del full
+    for label, r in results.items():
+        log(f"  {label}: prefill {r['prefill_tok_s']:.1f} tok/s, decode "
+            f"{r['decode_tok_s']:.1f} tok/s, decode step p50 "
+            f"{r['decode_step_ms_p50']:.2f} ms p99 "
+            f"{r['decode_step_ms_p99']:.2f} ms, {r['steps']} steps")
+    profiles = {"1-stage, contiguous": one_prof,
+                "1-stage, paged (same call)": pg_prof}
+    for label, pr in profiles.items():
+        if pr is None:
+            raise AssertionError(f"{label}: nothing profiled")
+        log(f"  {label}, {pr['steps']} decode steps profiled: device "
+            f"{pr['device_ms_per_step']:.2f} ms a step (profiled wall "
+            f"{pr['profiled_wall_ms_per_step']:.2f} ms); top kernels "
+            f"{pr['top_kernels_ms_per_step']}")
+    log("COLDSTART " + json.dumps({
+        "scheme": {"s": sch.s, "w": sch.w, "servers": list(sch.servers),
+                   "predicted_ttft_s": sch.predicted_ttft,
+                   "predicted_tpot_s": sch.predicted_tpot,
+                   "slo_ok": sch.slo_ok},
+        "timeline_simulated": timeline, "deploy_s": deploy_s,
+        "loads_measured": rates, "results": results, "launches": counts,
+        "paged_token_agreement": agree, "layout_divergence": witness,
+        "profiles": profiles}))
+    return {k: counts[k] for k in ("flash_attention", "decode_attention")}
+
+
+def disk_tier_phase(torch, prompts):
+    """Full width, depth cut to 4 layers: the memory tier's streams against
+    a cold deploy (``params=None``) from an on-disk store written by
+    ``deploy(..., store_dir=...)``, each served through a cold start to 2
+    stages and a consolidation. The store lives inside the checkout and is
+    deleted after."""
+    import dataclasses
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+
+    cfg = dataclasses.replace(get_config("granite-3-8b"), n_layers=4)
+    model = Model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(1),
+                        device="cuda")
+    streams = {}
+    store_dir = ROOT / "_smoke_store"
+    shutil.rmtree(store_dir, ignore_errors=True)
+    try:
+        mem = frontend(torch)
+        mem.deploy(cfg, params, profile_of(model))
+        writer = frontend(torch)
+        t0 = time.perf_counter()
+        store = writer.deploy(cfg, params, profile_of(model),
+                              store_dir=str(store_dir))
+        write_s = time.perf_counter() - t0
+        del params, writer
+        torch.cuda.empty_cache()
+        cold = frontend(torch)
+        cold.deploy(cfg, None, profile_of(model), store_dir=str(store_dir))
+        rates = {}
+        for label, front in (("memory", mem), ("disk", cold)):
+            loads = []
+            ep = cold_start(torch, front, cfg.name, loads)
+            front.full_params = timed(torch, front.full_params, loads,
+                                      "full_params")
+            streams[label], _, _ = drive(
+                torch, ep, prompts, consolidate_after=4,
+                consolidate=lambda: front.consolidate(ep, cfg.name))
+            rates[label] = load_rates(loads, front.store_of(cfg.name), 2)
+            del ep
+        log(f"  store written: {store.total_bytes / 2**30:.2f} GiB in "
+            f"{write_s:.1f} s; loads (measured wall, host -> card): "
+            f"{json.dumps(rates)}")
+    finally:
+        shutil.rmtree(store_dir, ignore_errors=True)
+    if streams["disk"] != streams["memory"]:
+        raise AssertionError(f"cold deploy from disk serves other streams "
+                             f"than the memory tier:\n{streams}")
+    log("  disk tier (4 of 40 layers): cold deploy from the store serves the "
+        "memory tier's streams")
+    log("DISK " + json.dumps({"layers": cfg.n_layers, "write_s": write_s,
+                              "loads_measured": rates,
+                              "streams_equal": True}))
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -620,10 +1020,12 @@ KERNELS = [
      "src/repro/kernels/ragged_attention.py:105"),
     ("paged_decode_attention", "src/repro_torch/csrc/paged_decode_attention.cu",
      "src/repro/kernels/decode_attention.py:154"),
+    ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+     "src/repro/kernels/flash_attention.py:69"),
+    ("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
+     "src/repro/kernels/decode_attention.py:85"),
 ]
 NOT_PORTED = [
-    ("flash_attention", "src/repro/kernels/flash_attention.py:69"),
-    ("decode_attention", "src/repro/kernels/decode_attention.py:85"),
     ("wkv6", "src/repro/kernels/wkv6.py:66"),
 ]
 
@@ -671,8 +1073,21 @@ def main():
 
     launches = {k: None for k in rows}
     if not args.quick:
-        log("== serve granite-3-8b at full width")
-        launches = serve_phase(torch)
+        import gc
+        from repro_torch.configs import get_config
+        prompts = main_prompts(get_config("granite-3-8b").vocab)
+        log("== serve granite-3-8b at full width (paged layout)")
+        launches.update(serve_phase(torch))
+        gc.collect()
+        torch.cuda.empty_cache()
+        log("== cold start through the ServerlessFrontend at full width "
+            "and depth (slot-contiguous layout)")
+        launches.update(coldstart_phase(torch, prompts))
+        gc.collect()
+        torch.cuda.empty_cache()
+        log("== disk tier: cold deploy from an on-disk store (full width, "
+            "4 layers)")
+        disk_tier_phase(torch, prompts)
 
     kernels = []
     for name, source, replaces in KERNELS:
@@ -684,8 +1099,8 @@ def main():
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"],
                         "err_over_tol": r["err_over_tol"]})
-    # the TPU kernels not ported yet, off this slice's path: named beside
-    # the ported ones so the line covers every pl.pallas_call of the repo
+    # the TPU kernel not ported yet, off the port's paths: named beside the
+    # ported ones so the line covers every pl.pallas_call of the repo
     not_ported = [{"name": name, "status": "not ported yet",
                    "replaces": replaces} for name, replaces in NOT_PORTED]
     print(json.dumps({"kernels": kernels, "not_ported": not_ported}))

@@ -1,16 +1,18 @@
-// Shared pieces of the two paged-attention kernels (ragged_paged_attention.cu
-// and paged_decode_attention.cu): dtype conversion, the shared-memory layout
-// of one block, the page load and the online-softmax step over one page.
+// Shared pieces of the attention kernels: the two paged ones
+// (ragged_paged_attention.cu, paged_decode_attention.cu) and the two over
+// slot-contiguous K/V (flash_attention.cu, decode_attention.cu): dtype
+// conversion, the shared-memory layout of one block, the K/V tile load and
+// the online-softmax step over one tile.
 //
-// One block owns R query rows that read the same kv head through the same
-// block-table row. It walks that row's pages in order; for each page it
-// loads the page's K and V rows into shared memory as float32, scores every
-// (row, key) pair, folds the page into each row's running max m, sum l and
-// accumulator acc, and moves on. Row r attends keys at positions
-// kpos < vlen[r]: a key past vlen is never scored and never multiplied into
-// acc (a page row past a sequence's end may hold anything, so it must not
-// meet a zero probability as 0 * x). A row with no valid key keeps l == 0
-// and acc == 0, and is written as acc / max(l, 1e-30) == 0.
+// One block owns R query rows that read the same kv head. It walks its K/V
+// rows in tiles (a page of a block-table row, or KB consecutive rows of a
+// contiguous cache); for each tile it loads the K and V rows into shared
+// memory as float32, scores every (row, key) pair, folds the tile into each
+// row's running max m, sum l and accumulator acc, and moves on. Row r attends
+// keys at positions kpos < vlen[r]: a key past vlen is never scored and never
+// multiplied into acc (a row past a sequence's end may hold anything, so it
+// must not meet a zero probability as 0 * x). A row with no valid key keeps
+// l == 0 and acc == 0, and is written as acc / max(l, 1e-30) == 0.
 
 #pragma once
 
@@ -29,18 +31,20 @@ constexpr int THREADS = 128;
 // dtype codes shared with the Python wrappers (kernels/_build.py)
 enum DType { F32 = 0, BF16 = 1, F16 = 2, I8 = 3 };
 
-// q and the output: float32 or bf16 (pages are unpacked by PageLoader)
+// q and the output: float32, bf16 or fp16 (K/V are unpacked by PageLoader)
 template <typename T> __device__ __forceinline__ float to_f32(T x);
 template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
 template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+template <> __device__ __forceinline__ float to_f32<__half>(__half x) { return __half2float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
+template <> __device__ __forceinline__ __half from_f32<__half>(float x) { return __float2half_rn(x); }
 
 // Shared memory of one block, in floats: q (R x HD), K page (bs x HD+1, the
 // +1 staggers rows across banks for the per-key dot products), V page
@@ -97,12 +101,15 @@ __device__ inline void softmax_init(const Smem& s, int R, int hd) {
   }
 }
 
-// The loads of one page's K and V rows [0, nrows) for kv head h, in 16-byte
-// vectors: a row is HD * sizeof(KT) bytes, a multiple of 16 for HD >= 16,
-// and neighbouring threads read neighbouring vectors of a row. fetch()
-// issues a thread's first VPT vectors of K and of V together into registers
-// and returns without waiting for them, so the caller fetches page ib + 1
-// before it scores page ib and the loads are in flight meanwhile. store()
+// The loads of one tile's K and V rows for kv head h, in 16-byte vectors: a
+// row is HD * sizeof(KT) bytes, a multiple of 16 for HD >= 16, and
+// neighbouring threads read neighbouring vectors of a row. A tile is nrows
+// consecutive rows of the (rows, hkv, HD) K/V arrays from row row0: a page
+// of a pool (fetch: row0 = page * bs) or a span of a contiguous cache
+// (fetch_rows). fetch_rows() issues a thread's first VPT vectors of K and
+// of V together into registers and returns without waiting for them, so
+// the caller fetches tile ib + 1 before it scores tile ib and the loads
+// are in flight meanwhile. store()
 // writes them to shared memory as float32, loading any vectors past the
 // first VPT * THREADS (pages larger than the main path's) there and then.
 // int8 pages are dequantized on the way as q * scale + zero, rounded as the
@@ -122,13 +129,13 @@ struct PageLoader {
   const float* v_scale;
   const float* v_zero;
   int bs, hkv, h;
-  int64_t page;
+  int64_t row0;
   int nvec;
   uint4 k[VPT], v[VPT];
   float qk[2 * VPT], qv[2 * VPT];  // int8: (scale, zero) of each vector's row
 
   __device__ __forceinline__ void load(int e, uint4& kr, uint4& vr, float* sk, float* sv) const {
-    const int64_t tok = (page * bs + e / VPR) * hkv + h;
+    const int64_t tok = (row0 + e / VPR) * hkv + h;
     kr = __ldg(reinterpret_cast<const uint4*>(k_pages + tok * HD) + e % VPR);
     vr = __ldg(reinterpret_cast<const uint4*>(v_pages + tok * HD) + e % VPR);
     if constexpr (Q8) {
@@ -140,7 +147,11 @@ struct PageLoader {
   }
 
   __device__ __forceinline__ void fetch(int64_t page_id, int nrows) {
-    page = page_id;
+    fetch_rows(page_id * bs, nrows);
+  }
+
+  __device__ __forceinline__ void fetch_rows(int64_t first_row, int nrows) {
+    row0 = first_row;
     nvec = nrows * VPR;
 #pragma unroll
     for (int u = 0; u < VPT; ++u) {
@@ -198,7 +209,7 @@ struct PageLoader {
   }
 };
 
-// Fold one page (keys at positions kpos0 .. kpos0 + bs - 1, stored by
+// Fold one tile (keys at positions kpos0 .. kpos0 + bs - 1, stored by
 // PageLoader) into the R rows' running softmax state. Ends synchronised.
 template <int HD>
 __device__ inline void softmax_page(const Smem& s, int R, int bs, int kpos0, float scale) {
@@ -270,6 +281,26 @@ __device__ inline void softmax_page(const Smem& s, int R, int bs, int kpos0, flo
     s.acc[e] = fmaf(s.acc[e], s.corr[r], (a[0] + a[1]) + (a[2] + a[3]));
   }
   __syncthreads();
+}
+
+// Fold rows [row0, row0 + len) of slot-contiguous K/V (kv head h) into the
+// R rows' softmax state, in tiles of kb keys, the next tile's loads in flight
+// while the current one is scored. The caller has filled q and vlen (every
+// vlen <= len), run softmax_init and synchronised. Ends synchronised.
+template <typename KT, int HD>
+__device__ inline void softmax_rows(const Smem& s, int R, const KT* k, const KT* v, int hkv,
+                                    int h, int64_t row0, int len, int kb, float scale) {
+  const int n_tiles = (max(len, 0) + kb - 1) / kb;
+  PageLoader<KT, HD> ld{k, v, nullptr, nullptr, nullptr, nullptr, kb, hkv, h};
+  if (n_tiles > 0) ld.fetch_rows(row0, min(kb, len));
+  for (int ib = 0; ib < n_tiles; ++ib) {
+    ld.store(s);
+    __syncthreads();
+    if (ib + 1 < n_tiles) {
+      ld.fetch_rows(row0 + static_cast<int64_t>(ib + 1) * kb, min(kb, len - (ib + 1) * kb));
+    }
+    softmax_page<HD>(s, R, kb, ib * kb, scale);
+  }
 }
 
 // Raise the dynamic shared-memory cap of a kernel once it needs more than the

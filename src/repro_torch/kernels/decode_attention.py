@@ -1,12 +1,14 @@
-"""Paged decode attention: the CUDA kernel's wrapper.
+"""Decode attention: the wrappers of the two CUDA decode kernels.
 
-One query token per sequence against the shared page pool through block
-tables, masked by ``kv_len``. Kernel: ``csrc/paged_decode_attention.cu``
-(replaces ``src/repro/kernels/decode_attention.py::paged_decode_attention``);
-plain version: ``kernels/ref.py::paged_decode_attention_reference``.
+One query token per sequence, masked by ``kv_len``, either
 
-The slot-contiguous ``decode_attention`` (the reference's other kernel in
-that module) is not ported yet: the port serves the paged layout only.
+* against the shared page pool through block tables: ``csrc/
+  paged_decode_attention.cu`` (replaces ``src/repro/kernels/
+  decode_attention.py::paged_decode_attention``; plain version
+  ``kernels/ref.py::paged_decode_attention_reference``), or
+* against slot-contiguous caches (B, S, Hkv, hd): ``csrc/
+  decode_attention.cu`` (replaces ``decode_attention.py::decode_attention``;
+  plain version ``kernels/ref.py::decode_attention_reference``).
 """
 
 from __future__ import annotations
@@ -21,13 +23,15 @@ from repro_torch.kernels.ref import softmax_scale
 HEAD_DIMS = (16, 32, 64, 128)
 Q_DTYPES = (torch.float32, torch.bfloat16)
 PAGE_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+CACHE_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
-# launches, counted where the kernel is launched
-LAUNCHES = {"paged_decode_attention": 0}
+# launches, counted where each kernel is launched
+LAUNCHES = {"paged_decode_attention": 0, "decode_attention": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = [_P] * 6 + [_I] * 6 + [ctypes.c_float, _I, _I, _P]
+_CONTIG_ARGTYPES = [_P] * 5 + [_I] * 5 + [ctypes.c_float, _I, _P]
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_len):
@@ -69,4 +73,45 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_len):
         raise RuntimeError(f"paged_decode_attention launch failed: CUDA "
                            f"error {err}")
     LAUNCHES["paged_decode_attention"] += 1
+    return out
+
+
+def decode_attention(q, k_cache, v_cache, kv_len):
+    """q (B,1,Hq,hd); caches (B,S,Hkv,hd) in q's dtype; kv_len (B,) int32
+    -> (B,1,Hq,hd). Row b attends its cache rows [0, kv_len[b]) (clamped
+    to [0, S]); the kernel reads no row past that. Launches the CUDA kernel
+    on the current stream; raises on anything it does not take."""
+    _build.check_cuda("decode_attention", q=q, k_cache=k_cache,
+                      v_cache=v_cache, kv_len=kv_len)
+    b, one, hq, hd = q.shape
+    bk, s, hkv, hd_k = k_cache.shape
+    if one != 1:
+        raise ValueError(f"one query token per sequence, got {one}")
+    if (q.dtype not in CACHE_DTYPES or k_cache.dtype != q.dtype
+            or v_cache.dtype != q.dtype):
+        raise ValueError(f"decode_attention: q/cache dtypes {q.dtype}/"
+                         f"{k_cache.dtype}/{v_cache.dtype}: want one of "
+                         f"{CACHE_DTYPES} for all three")
+    if (hd not in HEAD_DIMS or hd_k != hd or v_cache.shape != k_cache.shape
+            or bk != b):
+        raise ValueError(f"head_dim {hd} (q {tuple(q.shape)}, caches "
+                         f"{tuple(k_cache.shape)}): want one of {HEAD_DIMS} "
+                         f"and matching shapes")
+    if hq % hkv:
+        raise ValueError(f"Hq={hq} not a multiple of Hkv={hkv}")
+    if kv_len.dtype != torch.int32 or kv_len.shape != (b,):
+        raise ValueError(f"kv_len must be int32 (B,), got {kv_len.dtype} "
+                         f"{tuple(kv_len.shape)}")
+    _build.check_aligned("decode_attention", k_cache=k_cache,
+                         v_cache=v_cache)
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    fn = _build.entry("decode_attention", _CONTIG_ARGTYPES)
+    err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+             kv_len.data_ptr(), out.data_ptr(), b, s, hq, hkv, hd,
+             softmax_scale(hd), _build.dtype_code(q.dtype), stream)
+    if err:
+        raise RuntimeError(f"decode_attention launch failed: CUDA error "
+                           f"{err}")
+    LAUNCHES["decode_attention"] += 1
     return out

@@ -14,8 +14,11 @@ from __future__ import annotations
 from typing import Dict
 
 from repro_torch.kernels import decode_attention as _da
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ragged_attention as _ra
 from repro_torch.kernels import ref as _ref
+
+_COUNTS = (_ra.LAUNCHES, _da.LAUNCHES, _fa.LAUNCHES)
 
 
 def _on_card(t) -> bool:
@@ -28,13 +31,35 @@ def _on_card(t) -> bool:
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last ``reset_launch_counts``, by kernel."""
-    return {**_ra.LAUNCHES, **_da.LAUNCHES}
+    return {k: n for counts in _COUNTS for k, n in counts.items()}
 
 
 def reset_launch_counts():
-    for counts in (_ra.LAUNCHES, _da.LAUNCHES):
+    for counts in _COUNTS:
         for k in counts:
             counts[k] = 0
+
+
+def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
+                    kv_len=None):
+    """Prefill attention over slot-contiguous K/V. q (B,Sq,Hq,hd); k, v
+    (B,Sk,Hkv,hd). ``kv_len`` (B,) is the plain version's only: the
+    kernel, like the Pallas one, takes none, and on the card it raises."""
+    if _on_card(q):
+        if kv_len is not None:
+            raise ValueError("flash_attention: the kernel takes no kv_len "
+                             "(as the Pallas kernel takes none)")
+        return _fa.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+    return _ref.mha_reference(q, k, v, causal=causal, q_offset=q_offset,
+                              kv_len=kv_len)
+
+
+def decode_attention(q, k_cache, v_cache, kv_len):
+    """Single-token decode against slot-contiguous caches. q (B,1,Hq,hd);
+    caches (B,S,Hkv,hd); kv_len (B,) int32."""
+    if _on_card(q):
+        return _da.decode_attention(q, k_cache, v_cache, kv_len)
+    return _ref.decode_attention_reference(q, k_cache, v_cache, kv_len)
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_len):

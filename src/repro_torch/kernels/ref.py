@@ -4,6 +4,7 @@ kernel against on the card.
 
 Shapes follow the reference (``src/repro/kernels/ref.py``):
   q          (B, Sq, Hq, hd)         ragged: (T, Hq, hd)
+  k, v       (B, Sk, Hkv, hd)        slot-contiguous caches / prompt K/V
   pages      (N, bs, Hkv, hd)        Hq % Hkv == 0 (GQA), head hq reads
                                      kv head hq // (Hq // Hkv)
   kv_len     (B,) int32 valid cache length per sequence
@@ -38,6 +39,46 @@ def _masked_softmax_av(s, mask, v):
     p = torch.where(mask, torch.exp(s - m), torch.zeros_like(s))
     l = p.sum(dim=-1, keepdim=True)
     return (p @ v) / torch.clamp_min(l, 1e-30)
+
+
+# ---------------------------------------------------------------------------
+# Attention over slot-contiguous K/V: prefill (flash) and decode.
+# ---------------------------------------------------------------------------
+
+
+def mha_reference(q, k, v, *, causal: bool = True, q_offset: int = 0,
+                  kv_len=None):
+    """Plain version of ``flash_attention``.
+
+    q (B,Sq,Hq,hd); k, v (B,Sk,Hkv,hd). Query position t (absolute
+    ``q_offset + t``) attends keys kpos < Sk and, when ``causal``,
+    kpos <= q_offset + t; ``kv_len`` (B,) further masks kpos >= kv_len[b].
+    Unlike the reference's oracle of the same name, a row with no valid key
+    comes back exactly 0 (as the kernels give it), not a uniform average."""
+    b, sq, hq, hd = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    qs = q.float().reshape(b, sq, hkv, g, hd).permute(0, 2, 3, 1, 4)
+    kf = k.float().permute(0, 2, 1, 3)[:, :, None]         # (B,Hkv,1,Sk,hd)
+    vf = v.float().permute(0, 2, 1, 3)[:, :, None]
+    s = (qs @ kf.transpose(-1, -2)) * softmax_scale(hd)    # (B,Hkv,G,Sq,Sk)
+    kpos = torch.arange(sk, device=q.device)
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        qpos = torch.arange(sq, device=q.device) + q_offset
+        mask = kpos[None, :] <= qpos[:, None]
+    mask = mask[None].expand(b, sq, sk)
+    if kv_len is not None:
+        mask = mask & (kpos[None, None, :] < kv_len.long()[:, None, None])
+    o = _masked_softmax_av(s, mask[:, None, None], vf)     # (B,Hkv,G,Sq,hd)
+    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, hd).to(q.dtype)
+
+
+def decode_attention_reference(q, k_cache, v_cache, kv_len):
+    """Plain version of ``decode_attention``: q (B,1,Hq,hd) against
+    slot-contiguous caches (B,S,Hkv,hd), over each row's first ``kv_len``
+    positions; a row with kv_len 0 is exactly 0."""
+    return mha_reference(q, k_cache, v_cache, causal=False, kv_len=kv_len)
 
 
 # ---------------------------------------------------------------------------

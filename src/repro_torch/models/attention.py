@@ -1,15 +1,21 @@
-"""GQA self-attention over the paged KV layout, with RoPE and QKV bias.
+"""GQA self-attention with RoPE and QKV bias, over two KV layouts.
 
-The port serves the paged layout only: K/V live in a shared page pool
-(N, bs, Hkv, hd) addressed through per-request block tables. Two branches
-of the reference's ``self_attention`` are here: the fused ragged step (a
-whole mixed batch through ``ops.ragged_paged_attention``) and the paged
-decode step (``ops.paged_decode_attention``). The slot-contiguous branch,
-the paged prefill over ``flash_attention`` and cross-attention wait for
-the ``flash_attention`` and ``decode_attention`` kernels and raise.
+* paged: K/V live in a shared page pool (N, bs, Hkv, hd) addressed through
+  per-request block tables. The fused ragged step serves a whole mixed
+  batch through ``ops.ragged_paged_attention``; a decode step reads the
+  pool through ``ops.paged_decode_attention``.
+* slot-contiguous: each sequence owns a (S, Hkv, hd) strip of a (B, S, Hkv,
+  hd) cache (``make_kv_cache``). A prefill (the whole prompt, no history)
+  attends within the prompt through ``ops.flash_attention`` and writes its
+  K/V at [0, S); a decode step writes each row's new K/V at its position
+  and attends the strip through ``ops.decode_attention``.
 
-Where JAX rebuilt the pools functionally, the port writes into them in
-place (``paged_kv_write``, ``ragged_kv_write``).
+Where JAX rebuilt the caches functionally, the port writes into them in
+place (``paged_kv_write``, ``ragged_kv_write``, the contiguous writes).
+Not ported: the reference's ``append`` decode mode (an environment knob
+with no kernel of its own), chunked prefill over the paged pool with
+``flash_attention`` (the port's paged prefill is the ragged step) and
+cross-attention.
 """
 
 from __future__ import annotations
@@ -52,6 +58,15 @@ def _project(cfg, p, x, which: str, n_heads: int):
         y = y + p[f"b_{which}"].to(x.dtype)
     b, s, _ = y.shape
     return y.reshape(b, s, n_heads, cfg.head_dim)
+
+
+def make_kv_cache(cfg: ModelConfig, n_attn_layers: int, batch: int,
+                  max_seq: int, dtype, device=None) -> dict:
+    """Slot-contiguous KV cache, zero-filled: layout (L, B, S, Hkv, hd)."""
+    shape = (n_attn_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    dt = as_dtype(dtype)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
 
 
 def paged_kv_token_bytes(cfg: ModelConfig, kv_dtype=None) -> int:
@@ -113,6 +128,16 @@ def self_attention(cfg: ModelConfig, p: dict, x, *, positions,
                    kv_quant: Optional[dict] = None):
     """x (B,S,d). positions (B,S) absolute positions of the tokens in x.
 
+    Slot-contiguous layout (``kv_cache`` = (k, v) slabs (B,Smax,Hkv,hd), no
+    ``block_tables``, no ``ragged``):
+
+    * prefill (``decode=False``): attends within x (``ops.flash_attention``,
+      ``q_offset`` 0) and writes x's K/V at rows [0, S) of the slabs; with
+      no ``kv_cache`` it only attends.
+    * decode (``decode=True``): S == 1; row b's new K/V are written at
+      ``positions[b, 0]`` and it attends rows [0, pos + 1) of its strip
+      (``ops.decode_attention``).
+
     ``ragged`` = (tables (R,nb), row (T,), valid (T,)) is the fused
     ragged-batch path: x is (1, T, d) — a whole mixed step (prefill chunks
     of varying history + decode rows) flattened into one token axis,
@@ -127,17 +152,16 @@ def self_attention(cfg: ModelConfig, p: dict, x, *, positions,
     S == 1, the new K/V are written at ``positions`` and attention reads
     the pool through the tables (``ops.paged_decode_attention``).
 
-    Returns (out (B,S,d), new_cache): the same pool tensors, written in
-    place.
+    Returns (out (B,S,d), new_cache): the same cache tensors, written in
+    place (None without a cache).
     """
-    if kv_cache is None or (ragged is None and block_tables is None):
+    paged = ragged is not None or block_tables is not None
+    if paged and kv_cache is None:
+        raise ValueError("the paged layout needs its pools (kv_cache)")
+    if ragged is None and block_tables is not None and not decode:
         raise NotImplementedError(
-            "the slot-contiguous layout waits for the flash_attention and "
-            "decode_attention kernels: the port serves paged pools only")
-    if ragged is None and not decode:
-        raise NotImplementedError(
-            "paged prefill outside the ragged step waits for the "
-            "flash_attention kernel: use the ragged path")
+            "paged prefill outside the ragged step (chunked prefill over "
+            "flash_attention) is not ported: use the ragged path")
     if kv_quant is not None and ragged is None:
         raise ValueError("quantized KV pools are only served by the ragged "
                          "fused path")
@@ -149,8 +173,33 @@ def self_attention(cfg: ModelConfig, p: dict, x, *, positions,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
 
-    ck, cv = kv_cache
-    if ragged is not None:
+    new_cache = None
+    if not paged and not decode:
+        if kv_cache is not None:
+            # the strips take the prompt's K/V at [0, S): the reference
+            # prefilled a fresh zero batch-1 cache and scattered it into the
+            # slot, the port writes the slot's strips (what the caller
+            # passes) in place. Rows at and past S stay as they are: the
+            # slot was zeroed when it was freed (worker.clear_slot), and no
+            # kernel reads a row at or past kv_len.
+            ck, cv = kv_cache
+            ck[:, :seq] = k.to(ck.dtype)
+            cv[:, :seq] = v.to(cv.dtype)
+            new_cache = (ck, cv)
+        out = ops.flash_attention(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), causal=causal, q_offset=0)
+    elif not paged:
+        assert kv_cache is not None and seq == 1
+        ck, cv = kv_cache
+        rows = torch.arange(bsz, device=x.device)
+        pos = positions[:, 0].long()
+        ck[rows, pos] = k[:, 0].to(ck.dtype)
+        cv[rows, pos] = v[:, 0].to(cv.dtype)
+        new_cache = (ck, cv)
+        kv_len = (positions[:, 0] + 1).to(torch.int32)
+        out = ops.decode_attention(q.contiguous(), ck, cv, kv_len)
+    elif ragged is not None:
+        ck, cv = kv_cache
         assert bsz == 1
         tables, row, valid = ragged
         pos1 = positions[0]
@@ -173,6 +222,7 @@ def self_attention(cfg: ModelConfig, p: dict, x, *, positions,
         out = out1[None].to(x.dtype)
     else:
         assert seq == 1
+        ck, cv = kv_cache
         paged_kv_write(ck, k, block_tables, positions)
         paged_kv_write(cv, v, block_tables, positions)
         new_cache = (ck, cv)

@@ -1,6 +1,6 @@
-"""Model facade: ParamDef trees, init, one-shot paged prefill / decode
-entry points, and the stage-slicing API used by pipeline-parallel cold
-starts."""
+"""Model facade: ParamDef trees, init, one-shot prefill / decode entry
+points over the paged or the slot-contiguous KV layout, and the
+stage-slicing API used by pipeline-parallel cold starts."""
 
 from __future__ import annotations
 
@@ -44,17 +44,30 @@ class Model:
 
     # ------------------------------------------------------------- serving
     def prefill(self, params, tokens, max_seq: int, *, page_size: int = 16,
-                kv_dtype=None):
-        """Full-prompt pass of ``tokens`` (B,S) through the fused ragged
-        path into fresh paged pools (each sequence owns ``ceil(max_seq /
-        page_size)`` pages; the last page is the trash page), stored as
-        ``kv_dtype`` (default: the model's dtype; ``"int8"`` quantizes the
-        pages and attention dequantizes them in its loads). Returns
-        (last-token logits (B,V), cache) where cache is {"pools": the
-        per-period pools, "block_tables": (B,nb) int32}."""
+                kv_dtype=None, paged: bool = True):
+        """Full-prompt pass of ``tokens`` (B,S). ``paged=True``: through the
+        fused ragged path into fresh paged pools (each sequence owns
+        ``ceil(max_seq / page_size)`` pages; the last page is the trash
+        page), stored as ``kv_dtype`` (default: the model's dtype;
+        ``"int8"`` quantizes the pages and attention dequantizes them in
+        its loads); the cache is {"pools": the per-period pools,
+        "block_tables": (B,nb) int32}. ``paged=False``: through
+        ``flash_attention`` into fresh slot-contiguous slabs (the
+        reference's ``Model.prefill``); the cache is the per-period
+        {"k", "v"} slabs. Returns (last-token logits (B,V), cache)."""
         cfg = self.cfg
         dev = params["final_norm"].device
         b, s = tokens.shape
+        if not paged:
+            cache = transformer.init_cache(cfg, b, max_seq, self.dtype,
+                                           kv_dtype=kv_dtype, device=dev)
+            pos = torch.arange(s, dtype=torch.int32,
+                               device=dev)[None].expand(b, s)
+            x = transformer.embed(cfg, params, tokens.to(dev), pos,
+                                  dtype=self.dtype)
+            x, _ = transformer.run_blocks(cfg, params["blocks"], x, pos,
+                                          cache=cache)
+            return transformer.head(cfg, params, x[:, -1:])[:, 0], cache
         nb = -(-max_seq // page_size)
         pools = transformer.init_cache(cfg, b, max_seq, self.dtype,
                                        paged=True, n_pages=b * nb + 1,
@@ -80,15 +93,17 @@ class Model:
         return logits, {"pools": pools, "block_tables": tables}
 
     def decode_step(self, params, cache, tokens, positions):
-        """One paged decode step. tokens (B,1) int32; positions (B,1) — the
-        position each new token is written to (attends to [0, pos])."""
+        """One decode step on a cache from :meth:`prefill` (either
+        layout). tokens (B,1) int32; positions (B,1) — the position each
+        new token is written to (attends to [0, pos])."""
         cfg = self.cfg
         x = transformer.embed(cfg, params, tokens, positions,
                               dtype=self.dtype)
-        x, _ = transformer.run_blocks(cfg, params["blocks"], x,
-                                      positions.to(torch.int32),
-                                      cache=cache["pools"], decode=True,
-                                      block_tables=cache["block_tables"])
+        paged = "pools" in cache
+        x, _ = transformer.run_blocks(
+            cfg, params["blocks"], x, positions.to(torch.int32),
+            cache=cache["pools"] if paged else cache, decode=True,
+            block_tables=cache["block_tables"] if paged else None)
         return transformer.head(cfg, params, x)[:, 0], cache
 
     # ------------------------------------------ pipeline stages (the paper)

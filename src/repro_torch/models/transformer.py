@@ -71,17 +71,24 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype, *,
                n_periods: Optional[int] = None, paged: bool = False,
                n_pages: Optional[int] = None,
                page_size: Optional[int] = None, kv_dtype=None, device=None):
-    """Stacked per-period paged KV pools (np, N, bs, Hkv, hd), zero-filled:
-    pad and idle-slot writes land on the null/trash page, and no pool row
-    that attention may reach ever holds NaN. ``kv_dtype`` overrides the
-    pool storage dtype; int8 adds per-row scale/zero leaves
-    (attention.KV_QUANT_LEAVES, f32). The slot-contiguous layout
-    (``paged=False``) is not ported yet."""
-    if not paged:
-        raise NotImplementedError("the port serves the paged KV layout only")
+    """Stacked per-period KV caches, zero-filled. ``paged=False``: the
+    slot-contiguous slabs {"k", "v"} (np, B, S, Hkv, hd), as the reference's
+    ``transformer.py::init_cache``. ``paged=True``: shared page pools
+    {"k_pages", "v_pages"} (np, N, bs, Hkv, hd); pad and idle-slot writes
+    land on the null/trash page, and no pool row that attention may reach
+    ever holds NaN. ``kv_dtype`` (paged only) overrides the pool storage
+    dtype; int8 adds per-row scale/zero leaves (attention.KV_QUANT_LEAVES,
+    f32)."""
     _check_supported(cfg)
-    assert n_pages is not None and page_size is not None
     np_ = n_periods if n_periods is not None else cfg.n_periods
+    if not paged:
+        if kv_dtype is not None:
+            raise ValueError("kv_dtype overrides the *paged* pool storage "
+                             "dtype")
+        return {f"slot{i:02d}": attn.make_kv_cache(cfg, np_, batch, max_seq,
+                                                   dtype, device=device)
+                for i in range(len(cfg.mixer_pattern))}
+    assert n_pages is not None and page_size is not None
     kd = as_dtype(kv_dtype if kv_dtype is not None else dtype)
     shp = (np_, n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
     cache = {}
@@ -128,12 +135,18 @@ def _period_step(cfg: ModelConfig, pslice: dict, cslice, x, positions,
         sp = pslice[slot]
         c = cslice.get(slot) if cslice is not None else None
         xin = rmsnorm(x, sp["mixer"]["norm"], cfg.norm_eps)
-        kvc = (c["k_pages"], c["v_pages"]) if c is not None else None
+        paged = c is not None and "k_pages" in c
+        if paged:
+            kvc = (c["k_pages"], c["v_pages"])
+        else:
+            kvc = (c["k"], c["v"]) if c is not None else None
         kvq = ({leaf: c[leaf] for leaf in attn.KV_QUANT_LEAVES}
-               if c is not None and "k_scale" in c else None)
+               if paged and "k_scale" in c else None)
         y, _ = attn.self_attention(cfg, sp["mixer"], xin,
                                    positions=positions, kv_cache=kvc,
-                                   decode=decode, block_tables=block_tables,
+                                   decode=decode,
+                                   block_tables=(block_tables if paged
+                                                 else None),
                                    ragged=ragged, kv_quant=kvq)
         x = x + y
         xin = rmsnorm(x, sp["mlp"]["norm"], cfg.norm_eps)
@@ -146,10 +159,12 @@ def run_blocks(cfg: ModelConfig, blocks: dict, x, positions, *,
                block_tables=None, ragged=None):
     """Run the stacked periods in order. ``blocks``/``cache`` leading dim =
     periods (possibly a stage's slice); each period gets views of its
-    slice, so the pools are written in place. ``block_tables`` (B,nb)
-    addresses the paged pools on a decode step; ``ragged`` = (tables, row,
-    valid) routes attention through the fused ragged-batch kernel — x is
-    (1, T, d), positions (1, T) with -1 pads. Returns (x, cache)."""
+    slice, so the caches are written in place. A slot-contiguous cache
+    (``k``/``v`` slabs) is prefilled from row 0 or, with ``decode``,
+    appended at ``positions``; ``block_tables`` (B,nb) addresses the paged
+    pools on a decode step; ``ragged`` = (tables, row, valid) routes
+    attention through the fused ragged-batch kernel — x is (1, T, d),
+    positions (1, T) with -1 pads. Returns (x, cache)."""
     for i in range(blocks["slot00"]["mixer"]["w_q"].shape[0]):
         pslice = tree_map(lambda a: a[i], blocks)
         cslice = tree_map(lambda a: a[i], cache) if cache is not None \

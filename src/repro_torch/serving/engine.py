@@ -1,11 +1,11 @@
 """Continuous-batching serving engine over a pipeline-parallel worker group.
 
-The port of the reference engine (``src/repro/serving/engine.py``) for the
-paged KV layout: real PyTorch compute on the card (or the CPU when asked),
-real paged KV pools, real §6.2 consolidation. ``submit(prompt,
-SamplingParams)`` returns a request handle, every ``step()`` returns a
-``StepOutput`` whose ``TokenEvent``s let callers stream, requests finish
-with a ``FinishReason`` and carry ``RequestMetrics`` in scheduler steps.
+The port of the reference engine (``src/repro/serving/engine.py``): real
+PyTorch compute on the card (or the CPU when asked), real KV caches, real
+§6.2 consolidation. ``submit(prompt, SamplingParams)`` returns a request
+handle, every ``step()`` returns a ``StepOutput`` whose ``TokenEvent``s
+let callers stream, requests finish with a ``FinishReason`` and carry
+``RequestMetrics`` in scheduler steps.
 
 The Engine composes two layers it drives each step:
 
@@ -16,16 +16,26 @@ The Engine composes two layers it drives each step:
     ``StageWorker`` pipeline and returns logits.
 
 The Engine applies sampling, finish semantics, and block-accounting side
-effects. Attention KV lives in a shared page pool addressed through the
-BlockManager's per-request block tables; ``prefix_cache=True`` shares
-cached prompt prefixes, ``prefill_chunk=N`` interleaves prefill chunks
-with decode, ``fused=True`` serves each step with at most two ragged
-launches, and ``kv_dtype`` ("float16" or "int8") sets the pool storage
-(int8 is served fused only).
+effects. KV layouts (``paged`` flag):
 
-Not in this slice: the slot-contiguous layout (``paged=False``), the
-multi-tier KV spill (``kv_tier``) and the KV-lifecycle sanitizer
-(``sanitize=True``) raise ``NotImplementedError``.
+  * paged (``paged=True``, and the port's default ``paged=None``):
+    attention KV lives in a shared page pool addressed through the
+    BlockManager's per-request block tables; ``prefix_cache=True`` shares
+    cached prompt prefixes, ``prefill_chunk=N`` interleaves prefill chunks
+    with decode, ``fused=True`` serves each step with at most two ragged
+    launches, and ``kv_dtype`` ("float16" or "int8") sets the pool storage
+    (int8 is served fused only).
+  * slot-contiguous (``paged=False``): per-slot (B, Smax) caches; a prefill
+    runs one whole prompt through ``flash_attention``, a decode step runs
+    every slot through ``decode_attention``. The options above need the
+    paged layout and are refused, as in the reference.
+
+The reference's ``paged=None`` follows its ``REPRO_DECODE_MODE`` switch
+(default: slot-contiguous); the port has no such switch and takes None to
+mean the paged layout, so callers ask for ``paged=False``.
+
+Not in this slice: the multi-tier KV spill (``kv_tier``) and the
+KV-lifecycle sanitizer (``sanitize=True``) raise ``NotImplementedError``.
 
 Most callers should not hold an Engine directly: ``ServingEndpoint``
 (serving/endpoint.py) is the stable handle that swaps engines in place
@@ -48,7 +58,8 @@ from repro_torch.models.model import Model
 from repro_torch.serving.api import (FinishReason, SamplingParams,
                                      StepOutput, TokenEvent, sample_token)
 from repro_torch.serving.kvcache import BlockManager, KVInvariantError
-from repro_torch.serving.migration import gather_stage_caches_with_bytes
+from repro_torch.serving.migration import (gather_stage_caches,
+                                           gather_stage_caches_with_bytes)
 from repro_torch.serving.runner import ModelRunner
 from repro_torch.serving.scheduler import (GenRequest, PrefillAssignment,
                                            Scheduler, SchedulingPolicy)
@@ -66,11 +77,6 @@ class Engine:
                  kv_tier=None, kv_dtype=None,
                  fused: Optional[bool] = None,
                  sanitize: Optional[bool] = None, device=None):
-        if paged is False:
-            raise NotImplementedError(
-                "the slot-contiguous KV layout (paged=False) is not ported "
-                "yet: it waits for the flash_attention and decode_attention "
-                "kernels")
         if kv_tier is not None:
             raise NotImplementedError("multi-tier KV spill (kv_tier) is not "
                                       "ported yet")
@@ -80,13 +86,24 @@ class Engine:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model = Model(cfg)     # attention-only dense decoders only
-        self.paged = True
+        if paged is None:
+            paged = True
+        self.paged = paged
+        if (prefix_cache or prefill_chunk is not None) and not paged:
+            raise ValueError("prefix_cache / prefill_chunk need the "
+                             "paged KV layout (Engine(paged=True))")
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError("prefill_chunk must be >= 1")
+        if kv_dtype is not None and not paged:
+            raise ValueError("kv_dtype overrides the *paged* pool storage "
+                             "dtype (Engine(paged=True))")
         quantized = (kv_dtype is not None
                      and as_dtype(kv_dtype) == torch.int8)
         if fused is None:
             fused = quantized
+        if fused and not paged:
+            raise ValueError("the fused ragged step needs the paged KV "
+                             "layout (Engine(paged=True))")
         if quantized and not fused:
             raise ValueError("int8 KV pages are only served by the fused "
                              "ragged kernel (fused=True)")
@@ -107,7 +124,7 @@ class Engine:
         self.scheduler = Scheduler(self.block_mgr, max_batch, policy,
                                    prefix_cache=prefix_cache)
         self.runner = ModelRunner(cfg, stage_params, max_batch, max_seq,
-                                  paged=True, n_blocks=n_blocks,
+                                  paged=paged, n_blocks=n_blocks,
                                   block_size=block_size, kv_dtype=kv_dtype,
                                   device=self.device)
         self._rid = itertools.count()
@@ -305,6 +322,7 @@ class Engine:
             for req, slot in plan.preempted:
                 preempted_rids.append(req.rid)
                 self.runner.clear_row(slot)
+                self.runner.clear_slot(slot)
             for req in plan.admitted:
                 self.runner.set_row(req.slot,
                                     self.block_mgr.tables[req.rid].blocks)
@@ -378,6 +396,7 @@ class Engine:
             for req, slot in plan.preempted:
                 preempted_rids.append(req.rid)
                 self.runner.clear_row(slot)
+                self.runner.clear_slot(slot)
                 # a deferred chunk whose request just lost its slot and
                 # blocks must not execute: the launch would write into
                 # freed (possibly re-allocated) pages
@@ -485,6 +504,7 @@ class Engine:
         req.metrics.finish_step = self.steps
         self.scheduler.release(req)
         self.runner.clear_row(slot)
+        self.runner.clear_slot(slot)
         self.finished.append(req)
 
     def preempt(self, req: GenRequest):
@@ -496,6 +516,7 @@ class Engine:
         self._check_live()
         slot = self.scheduler.force_preempt(req)
         self.runner.clear_row(slot)
+        self.runner.clear_slot(slot)
 
     def run(self, max_steps: int = 10_000) -> List[StepOutput]:
         self._check_live()
@@ -538,7 +559,8 @@ class Engine:
         move with them. In paged mode the gather is block-granular (§6.2:
         only the blocks the BlockManager reports live move, each shared
         block exactly once) and ``last_migration_bytes`` is the exact byte
-        count gathered. Refcount-zero prefix-cache blocks are dropped from
+        count gathered; the slot-contiguous layout gathers whole caches and
+        leaves it None. Refcount-zero prefix-cache blocks are dropped from
         the index rather than shipped — correctness needs only the live
         set (a preempted request therefore re-prefills from scratch after
         a consolidation; its stream is still bit-exact). The scheduling
@@ -552,17 +574,20 @@ class Engine:
                      kv_dtype=self.kv_dtype, fused=self.fused,
                      device=self.device)
         stage_caches = [w.cache for w in self.runner.workers]
-        self.block_mgr.drop_unreferenced_cache()
-        live_rids = [r.rid for r in self.active()]
-        live = self.block_mgr.blocks_of(live_rids)
-        # the successor's own fresh pools go before the gather allocates
+        # the successor's own fresh caches go before the gather allocates
         # the merged one, so the card never holds three copies
         eng.runner.workers[0].cache = None
-        cache, moved = gather_stage_caches_with_bytes(
-            stage_caches, live_blocks=live, target_stage=0,
-            tracer=self.block_mgr.tracer)
-        self.last_migration_bytes = moved
-        eng.last_migration_bytes = moved
+        if self.paged:
+            self.block_mgr.drop_unreferenced_cache()
+            live_rids = [r.rid for r in self.active()]
+            live = self.block_mgr.blocks_of(live_rids)
+            cache, moved = gather_stage_caches_with_bytes(
+                stage_caches, live_blocks=live, target_stage=0,
+                tracer=self.block_mgr.tracer)
+            self.last_migration_bytes = moved
+            eng.last_migration_bytes = moved
+        else:
+            cache = gather_stage_caches(stage_caches)
         eng.runner.workers[0].cache = cache
         eng.block_mgr = self.block_mgr
         eng.scheduler.adopt(self.scheduler, self.block_mgr)

@@ -6,7 +6,8 @@ according to which worker it comes from'). With the paged layout it is
 *block-granular*: only the pages named by the block manager's tables for
 in-flight requests are shipped, and ``gather_stage_caches_with_bytes``
 reports exactly the bytes moved — the ground truth the block manager's
-``migration_bytes`` estimate must match.
+``migration_bytes`` estimate must match. The slot-contiguous layout
+gathers whole caches (``gather_stage_caches``) and reports no bytes.
 """
 
 from __future__ import annotations
@@ -49,3 +50,12 @@ def gather_stage_caches_with_bytes(
         tracer.on_migration_gather(moved, list(live_blocks),
                                    len(stage_caches))
     return out, moved
+
+
+def gather_stage_caches(stage_caches: List[dict]) -> dict:
+    """Concatenate whole stage cache trees along the leading (period) axis
+    (the slot-contiguous layout: every slot's strip moves, live or not)."""
+    return {name: {leaf: torch.cat([c[name][leaf] for c in stage_caches],
+                                   dim=0)
+                   for leaf in stage_caches[0][name]}
+            for name in stage_caches[0]}

@@ -13,10 +13,14 @@ cached and re-uploaded only after a row changes. Idle slots point at the
 null page so their (unused) writes never land in a live page; for decode,
 half-prefilled slots are masked out the same way.
 
-Every prefill rides the ragged path (``forward_batch``), as in the
-reference for paged attention-only models: the flattening is the
-reference's, tile-aligned spans and power-of-two total lengths, so both
-packages feed the kernels the same layout.
+On the paged layout every prefill rides the ragged path
+(``forward_batch``), as in the reference for paged attention-only models:
+the flattening is the reference's, tile-aligned spans and power-of-two
+total lengths, so both packages feed the kernels the same layout. On the
+slot-contiguous layout a prefill runs one request at batch 1 over its
+whole prompt into its slot's strip, and a decode runs all ``max_batch``
+slots, idle ones at position 0, as the reference does; there is no block
+table.
 """
 
 from __future__ import annotations
@@ -37,9 +41,6 @@ class ModelRunner:
                  max_batch: int, max_seq: int, *, paged: bool,
                  n_blocks: int, block_size: int, kv_dtype=None,
                  device=None):
-        if not paged:
-            raise NotImplementedError("the port's ModelRunner serves the "
-                                      "paged KV layout only")
         self.cfg = cfg
         self.paged = paged
         self.max_batch = max_batch
@@ -72,6 +73,8 @@ class ModelRunner:
     def set_row(self, slot: int, blocks: Sequence[int]):
         """(Re)write one slot's block-table row: called on allocate and
         whenever extend crosses a block boundary."""
+        if not self.paged:
+            return
         if self.tracer is not None:
             self.tracer.on_set_row(slot, list(blocks))
         row = self._bt[slot]
@@ -82,6 +85,8 @@ class ModelRunner:
 
     def clear_row(self, slot: int):
         """Point a vacated slot (finish / preempt) back at the null page."""
+        if not self.paged:
+            return
         if self.tracer is not None:
             self.tracer.on_clear_row(slot)
         self._bt[slot] = self._null_page
@@ -91,6 +96,8 @@ class ModelRunner:
     def rebuild_rows(self, requests: Iterable, tables: dict):
         """Full rebuild from BlockManager state — only needed when a
         consolidated engine adopts another engine's residents."""
+        if not self.paged:
+            return
         self._bt[:] = self._null_page
         for r in requests:
             blocks = tables[r.rid].blocks
@@ -109,13 +116,27 @@ class ModelRunner:
     def prefill(self, slot: int, tokens: Sequence[int], start: int, n: int,
                 prefix_embeds=None):
         """One prefill forward over rows [start, start+n) of a request's
-        chain, as a one-segment ragged batch. Returns the last stage's
-        logits at the final row, (1, 1, V)."""
+        chain: a one-segment ragged batch on the paged layout, the slot's
+        whole prompt at batch 1 on the contiguous one (``start`` is 0
+        there: no chunking). Returns the last stage's logits at the final
+        row, (1, 1, V)."""
         if prefix_embeds is not None:
             raise NotImplementedError("prefix embeddings (VLM prefixes) are "
                                       "not ported yet")
-        h = self.forward_batch([(slot, list(tokens), start)])
-        return h[0][None, None]
+        if self.paged:
+            h = self.forward_batch([(slot, list(tokens), start)])
+            return h[0][None, None]
+        if start != 0:
+            raise KVInvariantError("chunked prefill requires the paged "
+                                   "layout")
+        if self.tracer is not None:
+            self.tracer.on_prefill(slot, start, n)
+        h = self._to_dev(np.asarray([list(tokens)], np.int32))
+        positions = self._to_dev(np.arange(start, start + n,
+                                           dtype=np.int32)[None])
+        for w in self.workers:
+            h = w.prefill_slot(h, slot, positions)
+        return h
 
     def decode(self, reqs: Sequence, skip_slots: Sequence[int] = ()):
         """One batched decode over ``reqs`` (each contributes its last
@@ -130,7 +151,9 @@ class ModelRunner:
         for r in reqs:
             tokens[r.slot, 0] = r.generated[-1]
             positions[r.slot, 0] = r.pos_next
-        if skip_slots:
+        if not self.paged:
+            bt = None
+        elif skip_slots:
             key = frozenset(skip_slots)
             if self._masked_dev[0] != key:
                 masked = self._bt.copy()
@@ -149,11 +172,14 @@ class ModelRunner:
         """ONE fused launch over a mixed ragged batch. ``segments`` is a
         list of (slot, tokens, pos0) — prefill chunks (len > 1, pos0 =
         rows already in the pool) and decode rows (len 1) freely mixed,
-        at most one segment per slot. Tokens are flattened into a single
-        ragged axis; each segment's span is tile-aligned (pad tokens get
-        pos = -1 → masked, writes routed to the trash page) and the total
-        is bucketed to a power of two. Returns (max_batch, V) logits —
+        at most one segment per slot (paged layout only). Tokens are
+        flattened into a single ragged axis; each segment's span is
+        tile-aligned (pad tokens get pos = -1 → masked, writes routed to
+        the trash page) and the total is bucketed to a power of two. Returns (max_batch, V) logits —
         row i is segment i's last real token's logits."""
+        if not self.paged:
+            raise KVInvariantError(
+                "forward_batch requires the paged attention-only layout")
         if not 0 < len(segments) <= self.max_batch:
             raise KVInvariantError(
                 f"{len(segments)} segments for max_batch={self.max_batch}")
@@ -236,6 +262,11 @@ class ModelRunner:
             if off != k.shape[0]:
                 raise KVInvariantError(
                     f"payload periods {k.shape[0]} != pipeline periods {off}")
+
+    def clear_slot(self, slot: int):
+        """Zero a vacated slot's contiguous strips on every stage."""
+        for w in self.workers:
+            w.clear_slot(slot)
 
     def retire(self):
         """Drop caches and params so a retired engine's stale runner

@@ -1,11 +1,15 @@
-"""Stage worker: holds one pipeline stage's parameter slice and the paged KV
-pools of its periods, and runs the stage's part of each forward.
+"""Stage worker: holds one pipeline stage's parameter slice and the KV
+caches of its periods, and runs the stage's part of each forward.
 
-The pools are a shared page pool per attention period, (P, N, bs, Hkv, hd),
-addressed through the block tables the engine's BlockManager hands out.
-The forwards write new K/V into them in place, and so do ``copy_pages``
-and ``write_page`` (the reference rebuilt each pool array functionally).
-The slot-contiguous layout and recurrent mixer states are not ported yet.
+Two attention KV layouts, as in the reference:
+  * slot-contiguous: (P, B, Smax, Hkv, hd) per attention period; a prefill
+    runs one request at batch 1 into its slot's strip.
+  * paged: a shared page pool (P, N, bs, Hkv, hd) per attention period,
+    addressed through the block tables the engine's BlockManager hands out.
+
+The forwards write new K/V into the caches in place, and so do
+``copy_pages``, ``write_page`` and ``clear_slot`` (the reference rebuilt
+each cache array functionally). Recurrent mixer states are not ported.
 """
 
 from __future__ import annotations
@@ -27,9 +31,8 @@ class StageWorker:
                  paged: bool = True, n_pages: Optional[int] = None,
                  page_size: Optional[int] = None, kv_dtype=None,
                  device=None):
-        if not paged:
-            raise NotImplementedError("the port's StageWorker serves the "
-                                      "paged KV layout only")
+        if kv_dtype is not None and not paged:
+            raise ValueError("kv_dtype override requires the paged layout")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model = Model(cfg)
@@ -49,7 +52,7 @@ class StageWorker:
         self.kv_dtype = kv_dtype
         self.cache = transformer.init_cache(
             cfg, max_batch, max_seq, cfg.dtype, n_periods=p1 - p0,
-            paged=True, n_pages=n_pages, page_size=page_size,
+            paged=paged, n_pages=n_pages, page_size=page_size,
             kv_dtype=kv_dtype, device=self.device)
         # correctness tracer (the reference's analysis/sanitizer.py hooks);
         # None in production
@@ -91,10 +94,34 @@ class StageWorker:
         return transformer.head(cfg, self.params, sel)
 
     @torch.no_grad()
+    def prefill_slot(self, x_in, slot: int, positions):
+        """Slot-contiguous prefill of one request (batch 1 inputs: tokens
+        (1, S) on the first stage, hidden (1, S, d) after) over its whole
+        prompt, into cache slot ``slot``: the K/V land at rows [0, S) of
+        the slot's strips, written in place, and the rest of the strips is
+        zeroed (the reference scattered a fresh batch-1 cache into the
+        slot). Last stage returns the final row's logits (1, 1, V)."""
+        if self.paged:
+            raise ValueError("prefill_slot is the slot-contiguous layout's; "
+                             "paged prefills ride forward_ragged")
+        cfg = self.cfg
+        if self.first:
+            x = transformer.embed(cfg, self.params, x_in, positions,
+                                  dtype=self.model.dtype)
+        else:
+            x = x_in
+        strip = tree_map(lambda a: a[:, slot:slot + 1], self.cache)
+        x, _ = transformer.run_blocks(cfg, self.params["blocks"], x,
+                                      positions, cache=strip)
+        return transformer.head(cfg, self.params, x[:, -1:]) \
+            if self.last else x
+
+    @torch.no_grad()
     def decode(self, x_in, positions, block_tables=None):
         """One batched decode step through the stage: tokens (B, 1) on the
         first stage, hidden (B, 1, d) after; last stage returns logits
-        (B, 1, V)."""
+        (B, 1, V). ``block_tables`` addresses the paged pools; the
+        slot-contiguous layout takes none."""
         cfg = self.cfg
         if self.first:
             x = transformer.embed(cfg, self.params, x_in, positions,
@@ -138,6 +165,16 @@ class StageWorker:
                           *(extras or {}).items()):
             sub[leaf][:, blk] = torch.as_tensor(val).to(sub[leaf].device,
                                                         sub[leaf].dtype)
+
+    def clear_slot(self, slot: int):
+        """Zero a vacated slot's strips of every non-paged cache leaf, in
+        place (the reference zeroes every leaf but the page pools: its
+        recurrent states and, here, the slot-contiguous K/V). Paged pools
+        need no clear: they are unreachable once the table row is freed."""
+        for sub in self.cache.values():
+            if "k_pages" not in sub:
+                for arr in sub.values():
+                    arr[:, slot] = 0
 
     def retire(self):
         """Drop the cache and params so a retired engine's stale worker

@@ -1,5 +1,7 @@
 """The port's CUDA kernels on the card, held against their plain PyTorch
-versions (``repro_torch.kernels.ref``) on the same inputs. Every test needs
+versions (``repro_torch.kernels.ref``) on the same inputs: the paged
+kernels (ragged, paged decode) and the slot-contiguous ones (flash,
+decode), and both engines' layouts against the CPU. Every test needs
 a CUDA card (marker ``cuda``) and skips without one. The file imports
 neither JAX nor the reference package, so it runs where only the port's
 dependencies are installed:
@@ -7,8 +9,9 @@ dependencies are installed:
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda \
         tests/test_torch_cuda.py
 
-Inputs come from numpy seeds, in the serving runner's ragged layout
-(tile-aligned spans, pad tokens at pos -1, pages at scattered ids).
+Inputs come from numpy seeds; the paged ones in the serving runner's
+ragged layout (tile-aligned spans, pad tokens at pos -1, pages at
+scattered ids).
 Tolerances: float32 atol = rtol = 1e-5 with TF32 off (both sides sum the
 same float32 terms in another order); a bf16 output row (token, head)
 within 2^-7 of its largest |value| plus 1e-4 (one bf16 rounding moves a
@@ -20,7 +23,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import decode_attention, ops, ragged_attention
+from repro_torch.kernels import (decode_attention, flash_attention, ops,
+                                 ragged_attention)
 from repro_torch.kernels import ref
 from repro_torch.kernels.ragged_attention import TILE_Q
 
@@ -226,3 +230,151 @@ def _tree_to(tree, dev):
     if isinstance(tree, dict):
         return {k: _tree_to(v, dev) for k, v in tree.items()}
     return tree.to(dev)
+
+
+# ---------------------------------------------------------------------------
+# the slot-contiguous kernels: flash (prefill) and decode attention
+# ---------------------------------------------------------------------------
+
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "fp16": torch.float16}
+
+
+def _check(got, want, dtype):
+    """f32 outputs at F32_TOL; bf16/fp16 outputs row by row against the
+    float32 plain version."""
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, **F32_TOL)
+    else:
+        assert got.dtype == dtype
+        _assert_rows_close(got, want)
+
+
+def _qkv(b, sq, sk, hq, hkv, hd, seed=0):
+    rng = np.random.RandomState(seed)
+    return [torch.from_numpy(rng.randn(b, n, h, hd).astype(np.float32))
+            for n, h in ((sq, hq), (sk, hkv), (sk, hkv))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("group", [1, 2, 4])
+def test_cuda_flash_matches_plain(cuda, group, hd, dtype):
+    """Causal prefill (Sq = Sk, not a multiple of any tile) at batch 2."""
+    dt = DTYPES[dtype]
+    q, k, v = [a.to(cuda, dt) for a in _qkv(2, 45, 45, 2 * group, 2, hd)]
+    ops.reset_launch_counts()
+    got = flash_attention.flash_attention(q, k, v, causal=True)
+    assert ops.launch_counts()["flash_attention"] == 1
+    want = ref.mha_reference(q.float(), k.float(), v.float(), causal=True)
+    _check(got, want, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,q_offset,sq,sk", [
+    (True, 0, 300, 300), (True, 17, 40, 57), (True, 70, 9, 33),
+    (False, 0, 13, 77), (False, 5, 64, 1)],
+    ids=["causal-300", "causal-offset", "causal-offset-past-sk",
+         "noncausal", "noncausal-sk1"])
+@pytest.mark.parametrize("group", [1, 4])
+def test_cuda_flash_offsets_and_edges(cuda, group, causal, q_offset, sq, sk):
+    q, k, v = [a.to(cuda) for a in _qkv(1, sq, sk, 2 * group, 2, 64,
+                                        seed=4)]
+    got = flash_attention.flash_attention(q, k, v, causal=causal,
+                                          q_offset=q_offset)
+    want = ref.mha_reference(q, k, v, causal=causal, q_offset=q_offset)
+    torch.testing.assert_close(got, want, **F32_TOL)
+
+
+def _contig_decode(lens, s, hq, hkv, hd, seed=0):
+    q, k, v = _qkv(len(lens), 1, s, hq, hkv, hd, seed)
+    return q, k, v, torch.tensor(lens, dtype=torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("group", [1, 2, 4])
+def test_cuda_decode_matches_plain(cuda, group, hd, dtype):
+    dt = DTYPES[dtype]
+    q, k, v, kl = _contig_decode([37, 1, 100, 64, 0], 100, 2 * group, 2, hd)
+    q, k, v, kl = q.to(cuda, dt), k.to(cuda, dt), v.to(cuda, dt), kl.to(cuda)
+    ops.reset_launch_counts()
+    got = decode_attention.decode_attention(q, k, v, kl)
+    assert ops.launch_counts()["decode_attention"] == 1
+    want = ref.decode_attention_reference(q.float(), k.float(), v.float(),
+                                          kl)
+    _check(got, want, dt)
+    assert bool((got[4] == 0).all())                  # kv_len 0: exactly 0
+
+
+@pytest.mark.cuda
+def test_cuda_contiguous_kernels_never_read_past_the_mask(cuda):
+    """NaN in every cache row at or past kv_len, and in every key past the
+    causal edge of the last query: no output may turn non-finite."""
+    q, k, v, kl = _contig_decode([5, 33, 0, 64], 64, 8, 2, 128, seed=5)
+    for b, n in enumerate(kl.tolist()):
+        k[b, n:] = float("nan")
+        v[b, n:] = float("nan")
+    out = decode_attention.decode_attention(*_to(cuda, (q, k, v, kl)))
+    assert bool(torch.isfinite(out).all())
+    assert bool((out[2] == 0).all())
+    q, k, v = _qkv(1, 20, 50, 8, 2, 64, seed=6)
+    k[:, 20:] = float("nan")                          # past causal row 19
+    v[:, 20:] = float("nan")
+    out = flash_attention.flash_attention(*_to(cuda, (q, k, v)), causal=True)
+    assert bool(torch.isfinite(out).all())
+
+
+@pytest.mark.cuda
+def test_cuda_contiguous_wrappers_refuse(cuda):
+    q, k, v = _to(cuda, _qkv(1, 8, 8, 4, 2, 16))
+    with pytest.raises(ValueError, match="dtypes"):
+        flash_attention.flash_attention(q, k.bfloat16(), v.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention.flash_attention(q.transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention.flash_attention(q[..., :8].contiguous(),
+                                        k[..., :8].contiguous(),
+                                        v[..., :8].contiguous())
+    with pytest.raises(ValueError, match="kv_len"):
+        ops.flash_attention(q, k, v, kv_len=torch.ones(
+            1, dtype=torch.int32, device=cuda))
+    kl = torch.ones(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="kv_len"):
+        decode_attention.decode_attention(q[:, :1].contiguous(), k, v,
+                                          kl.long())
+    with pytest.raises(ValueError, match="one query token"):
+        decode_attention.decode_attention(q, k, v, kl)
+    with pytest.raises(ValueError, match="dtypes"):
+        decode_attention.decode_attention(q[:, :1].contiguous(), k.half(),
+                                          v.half(), kl)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        decode_attention.decode_attention(q[:, :1].contiguous(), k.cpu(), v,
+                                          kl)
+
+
+@pytest.mark.cuda
+def test_cuda_contiguous_engine_matches_cpu(cuda):
+    """``Engine(paged=False)`` on the card (flash + decode kernels) against
+    the same engine on the CPU (plain versions): equal greedy tokens on the
+    float32 smoke model, and both kernels launched."""
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.models.model import Model
+    from repro_torch.serving.api import SamplingParams
+    from repro_torch.serving.engine import Engine
+    cfg = smoke_variant(get_config("granite-3-8b"))
+    params = Model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    prompts = [[1, 2, 3, 4, 5, 6, 7], [9, 8, 7, 6, 5], [3, 1, 4, 1, 5]]
+    streams = []
+    for dev in ("cpu", "cuda"):
+        eng = Engine(cfg, [_tree_to(params, dev)], max_batch=2, max_seq=32,
+                     paged=False, device=dev)
+        reqs = [eng.submit(p, SamplingParams(max_new=5)) for p in prompts]
+        ops.reset_launch_counts()
+        eng.run()
+        streams.append([list(r.generated) for r in reqs])
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] > 0 and counts["decode_attention"] > 0
+    assert counts["ragged_paged_attention"] == 0
+    assert streams[0] == streams[1]

@@ -226,3 +226,98 @@ def test_scale_up_and_knob_validation(granite):
         _port(tcfg, [tparams], fused=True).submit(
             [1, 2], SamplingParams(max_new=2),
             prefix_embeds=torch.zeros(2, tcfg.d_model))
+
+
+# ---------------------------------------------------------------------------
+# the slot-contiguous layout (paged=False): flash prefill, decode kernel
+# ---------------------------------------------------------------------------
+
+CKW = dict(KW, paged=False)
+
+
+@pytest.fixture(scope="module")
+def jax_contiguous(granite):
+    jcfg, jparams, _, _ = granite
+    eng = JEngine(jcfg, [jparams], **CKW)
+    assert not eng.paged
+    reqs = [eng.submit(p, JSP(max_new=6)) for p in PROMPTS]
+    eng.run()
+    return [list(r.generated) for r in reqs]
+
+
+def test_contiguous_greedy_streams_equal_reference(granite, jax_contiguous,
+                                                   jax_paged):
+    """Plain serving on the slot-contiguous layout: the port's streams
+    equal the reference's contiguous engine's, and the port's own paged
+    engine's."""
+    _, _, tcfg, tparams = granite
+    eng = Engine(tcfg, [tparams], **CKW, device="cpu")
+    reqs = [eng.submit(p, SamplingParams(max_new=6)) for p in PROMPTS]
+    eng.run()
+    assert not eng.paged and "k" in eng.workers[0].cache["slot00"]
+    assert [list(r.generated) for r in reqs] == jax_contiguous == jax_paged
+
+
+def test_contiguous_two_stage_consolidated_mid_stream(granite,
+                                                      jax_contiguous):
+    jcfg, jparams, tcfg, tparams = granite
+    jm, tm = jax_model(jcfg), Model(tcfg)
+    jep = JEndpoint(JEngine(jcfg, [jm.slice_stage_params(jparams, 2, i)
+                                   for i in range(2)], **CKW))
+    tep = ServingEndpoint(Engine(tcfg, [tm.slice_stage_params(tparams, 2, i)
+                                        for i in range(2)], **CKW,
+                                 device="cpu"))
+    jr = [jep.submit(p, JSP(max_new=6)) for p in PROMPTS]
+    tr = [tep.submit(p, SamplingParams(max_new=6)) for p in PROMPTS]
+    for _ in range(4):
+        jep.step()
+        tep.step()
+    jep.consolidate(jparams)
+    tep.consolidate(tparams)
+    assert tep.n_stages == 1
+    assert tep.last_migration_bytes is None
+    assert jep.last_migration_bytes is None
+    assert tep.engine.workers[0].cache["slot00"]["k"].shape[0] == \
+        tcfg.n_periods
+    jep.run()
+    tep.run()
+    assert [list(r.generated) for r in tr] == \
+        [list(r.generated) for r in jr] == jax_contiguous
+
+
+def test_contiguous_preemption_matches_reference(granite):
+    """Priority-policy preemption on the contiguous layout: the victim
+    re-prefills its whole chain, and both packages stream, count
+    preemptions and finish alike."""
+    jcfg, jparams, tcfg, tparams = granite
+    prios = [0, 0, 5, 1]
+    runs = []
+    for E, SP, cfg, p, extra in ((JEngine, JSP, jcfg, jparams, {}),
+                                 (Engine, SamplingParams, tcfg, tparams,
+                                  {"device": "cpu"})):
+        eng = E(cfg, [p], max_batch=2, max_seq=64, block_size=8,
+                paged=False, policy="priority", **extra)
+        reqs = []
+        for i, prompt in enumerate(PROMPTS):
+            reqs.append(eng.submit(prompt, SP(max_new=5, priority=prios[i])))
+            eng.step()
+        eng.preempt(next(r for r in reqs if not r.done and r.slot
+                         is not None))
+        eng.run()
+        runs.append(([list(r.generated) for r in reqs],
+                     [r.metrics.preemptions for r in reqs],
+                     eng.scheduler.n_preemptions))
+    assert runs[0] == runs[1]
+    assert runs[1][2] > 0, "nothing was preempted"
+
+
+def test_contiguous_refuses_paged_only_options(granite):
+    _, _, tcfg, tparams = granite
+    for kw, msg in (({"prefix_cache": True}, "paged"),
+                    ({"prefill_chunk": 4}, "paged"),
+                    ({"kv_dtype": "float16"}, "paged"),
+                    ({"fused": True}, "paged")):
+        with pytest.raises(ValueError, match=msg):
+            Engine(tcfg, [tparams], **CKW, device="cpu", **kw)
+    assert Engine(tcfg, [tparams], max_seq=32, device="cpu").paged, \
+        "the port's paged=None is the paged layout"

@@ -1,12 +1,14 @@
 """The port's kernel layer held against the reference on the CPU.
 
-The plain PyTorch versions of the two CUDA kernels (``repro_torch.kernels
+The plain PyTorch versions of the CUDA kernels (``repro_torch.kernels
 .ref``, reached through ``ops`` on CPU tensors) must match the JAX oracles
-and the Pallas kernel bodies run in interpret mode, over GQA group 1/2/4,
-page size 4/16, and mixed ragged batches of prefill chunks with history,
-decode rows and pad rows. Tolerance: atol = rtol = 1e-5 in float32 (both
-sides sum the same float32 terms in another order). Pad rows are exactly 0
-and int8 quantization matches byte for byte.
+and the Pallas kernel bodies run in interpret mode: the paged kernels over
+GQA group 1/2/4, page size 4/16, and mixed ragged batches of prefill chunks
+with history, decode rows and pad rows; flash attention causal and not,
+with ``q_offset`` and Sq != Sk; contiguous decode at kv_len 0, 1 and S.
+Tolerance: atol = rtol = 1e-5 in float32 (both sides sum the same float32
+terms in another order). Pad rows and empty rows are exactly 0 and int8
+quantization matches byte for byte.
 
 The CUDA kernels themselves run only on the card: ``test_torch_cuda.py``
 (marker ``cuda``) holds them against these plain versions and skips here;
@@ -206,6 +208,101 @@ def test_ops_counts_only_kernel_launches():
     d = _ragged(MATRIX[0][1], 2, 2, 4)
     _port_ragged(d)
     assert all(v == 0 for v in ops.launch_counts().values())
+    d = _contig([2, 5], 8, 2)
+    ops.decode_attention(*map(_torch, d))
+    ops.flash_attention(*map(_torch, _qkv(1, 4, 4, 2, 2)))
+    assert all(v == 0 for v in ops.launch_counts().values())
     assert set(ops.launch_counts()) == {"ragged_paged_attention",
                                         "ragged_paged_attention_q8",
-                                        "paged_decode_attention"}
+                                        "paged_decode_attention",
+                                        "flash_attention",
+                                        "decode_attention"}
+
+
+# ---------------------------------------------------------------------------
+# the slot-contiguous kernels' plain versions: flash (prefill) and decode
+# ---------------------------------------------------------------------------
+
+from repro.kernels import flash_attention as jfa  # noqa: E402
+
+j_mha = jax.jit(jref.mha_reference,
+                static_argnames=("causal", "q_offset"))
+
+
+def _qkv(b, sq, sk, hkv, group, seed=0):
+    rng = np.random.RandomState(seed)
+    return [rng.randn(b, n, h, HD).astype(np.float32)
+            for n, h in ((sq, hkv * group), (sk, hkv), (sk, hkv))]
+
+
+FLASH = [  # (causal, q_offset, Sq, Sk)
+    (True, 0, 13, 13),
+    (True, 6, 9, 15),
+    (True, 20, 5, 12),             # every query past the last key
+    (False, 0, 7, 19),
+    (False, 3, 16, 5),
+]
+
+
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("causal,q_offset,sq,sk", FLASH,
+                         ids=[f"{'causal' if c else 'full'}-off{o}-"
+                              f"q{a}k{b}" for c, o, a, b in FLASH])
+def test_flash_plain_matches_jax_and_pallas(group, causal, q_offset, sq,
+                                            sk):
+    q, k, v = _qkv(2, sq, sk, 2, group)
+    got = ops.flash_attention(*map(_torch, (q, k, v)), causal=causal,
+                              q_offset=q_offset).numpy()
+    jargs = [jnp.asarray(a) for a in (q, k, v)]
+    want = np.asarray(j_mha(*jargs, causal=causal, q_offset=q_offset))
+    np.testing.assert_allclose(got, want, **TOL)
+    interp = np.asarray(jfa.flash_attention(*jargs, causal=causal,
+                                            q_offset=q_offset,
+                                            interpret=True))
+    np.testing.assert_allclose(got, interp, **TOL)
+
+
+def test_flash_plain_kv_len_masks_keys():
+    """``kv_len`` (the plain version's only, as in the reference) masks
+    keys per batch row, equal to the reference oracle with the same
+    mask."""
+    q, k, v = _qkv(2, 6, 10, 2, 2, seed=3)
+    kl = np.asarray([4, 10], np.int32)
+    got = ops.flash_attention(*map(_torch, (q, k, v)), causal=False,
+                              kv_len=_torch(kl)).numpy()
+    want = np.asarray(jref.mha_reference(*map(jnp.asarray, (q, k, v)),
+                                         causal=False,
+                                         kv_len=jnp.asarray(kl)))
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def _contig(lens, s, group, seed=0):
+    q, k, v = _qkv(len(lens), 1, s, 2, group, seed)
+    return q, k, v, np.asarray(lens, np.int32)
+
+
+@pytest.mark.parametrize("group", [1, 2, 4])
+def test_decode_plain_matches_jax_and_pallas(group):
+    """kv_len 0, 1 and S in one batch: the kernel body (interpret mode)
+    gives exactly 0 for the empty row, as the plain version does; the
+    reference's oracle averages uniformly there, so it is held on the
+    other rows."""
+    d = _contig([0, 1, 24, 11], 24, group)
+    got = ops.decode_attention(*map(_torch, d)).numpy()
+    jargs = [jnp.asarray(a) for a in d]
+    interp = np.asarray(jda.decode_attention(*jargs, kv_block=8,
+                                             interpret=True))
+    np.testing.assert_allclose(got, interp, **TOL)
+    assert np.all(got[0] == 0.0)
+    want = np.asarray(jax.jit(jref.decode_attention_reference)(*jargs))
+    np.testing.assert_allclose(got[1:], want[1:], **TOL)
+
+
+def test_decode_plain_ignores_rows_past_kv_len():
+    q, k, v, kl = _contig([3, 9], 16, 2, seed=4)
+    ref_out = ops.decode_attention(*map(_torch, (q, k, v, kl))).numpy()
+    for b, n in enumerate(kl):
+        k[b, n:] = 1e4                  # anything past kv_len: no effect
+        v[b, n:] = -1e4
+    got = ops.decode_attention(*map(_torch, (q, k, v, kl))).numpy()
+    np.testing.assert_array_equal(got, ref_out)

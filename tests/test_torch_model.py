@@ -178,3 +178,52 @@ def test_int8_prefill_matches_the_int8_runner(granite):
     r.set_row(0, [0, 1, 2, 3])
     want = r.forward_batch([(0, tokens, 0)])[0]
     torch.testing.assert_close(tl[0], want, atol=1e-5, rtol=1e-5)
+
+
+def test_contiguous_prefill_and_decode_match_reference(granite):
+    """``Model.prefill(paged=False)`` (flash attention into fresh
+    slot-contiguous slabs) and ``decode_step`` on those slabs against the
+    reference's contiguous ``Model.prefill``/``decode_step``: logits to
+    atol 1e-4 and the K/V slabs to 1e-5 (float32, sums in another
+    order)."""
+    jcfg, jparams, tcfg, tparams = granite
+    jm, tm = jax_model(jcfg), Model(tcfg)
+    toks = np.random.RandomState(0).randint(0, tcfg.vocab, (2, 9)).astype(
+        np.int32)
+    jl, jc = jm.prefill(jparams, {"tokens": jnp.asarray(toks)}, 32)
+    tl, tc = tm.prefill(tparams, torch.from_numpy(toks), 32, paged=False)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4)
+    for name in jc:
+        for leaf in ("k", "v"):
+            np.testing.assert_allclose(tc[name][leaf].numpy(),
+                                       np.asarray(jc[name][leaf]), atol=1e-5)
+    nxt = np.asarray([[3], [4]], np.int32)
+    pos = np.asarray([[9], [9]], np.int32)
+    jl2, _ = jm.decode_step(jparams, jc, jnp.asarray(nxt), jnp.asarray(pos))
+    tl2, _ = tm.decode_step(tparams, tc, torch.from_numpy(nxt),
+                            torch.from_numpy(pos))
+    np.testing.assert_allclose(tl2.numpy(), np.asarray(jl2), atol=1e-4)
+
+
+def test_contiguous_worker_prefills_its_slot_and_clears_it(granite):
+    """A slot-contiguous prefill writes only the prompt rows of its slot's
+    strips and leaves the rows after as they were (no kernel reads them);
+    ``clear_slot`` zeroes the strip."""
+    from repro_torch.serving.worker import StageWorker
+    _, _, tcfg, tparams = granite
+    w = StageWorker(tcfg, tparams, 1, 0, 3, 16, paged=False, device="cpu")
+    k = w.cache["slot00"]["k"]
+    k[:, 2] = 7.0                          # a stale strip in another slot
+    k[:, 1] = 5.0                          # stale rows of the target slot
+    toks = torch.tensor([[1, 2, 3, 4, 5]], dtype=torch.int32)
+    out = w.prefill_slot(toks, 1, torch.arange(5, dtype=torch.int32)[None])
+    assert out.shape == (1, 1, tcfg.padded_vocab)
+    assert bool((k[:, 1, :5] != 5.0).any())
+    assert bool((k[:, 1, 5:] == 5.0).all())
+    assert bool((k[:, 2] == 7.0).all()) and not bool(k[:, 0].any())
+    w.clear_slot(1)
+    assert not bool(w.cache["slot00"]["k"][:, 1].any())
+    assert bool((k[:, 2] == 7.0).all())
+    with pytest.raises(ValueError, match="paged layout"):
+        StageWorker(tcfg, tparams, 1, 0, 3, 16, paged=False,
+                    kv_dtype="int8", device="cpu")

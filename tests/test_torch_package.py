@@ -90,6 +90,15 @@ def test_default_device_is_the_card(monkeypatch):
         Model(cfg).init()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         params_from_numpy({"w": np.zeros(3, np.float32)})
+    from repro_torch.core import ServerSpec
+    from repro_torch.serving.endpoint import ServerlessFrontend
+    from repro_torch.store import (FetchSchedule, ModelStore,
+                                   StreamedStageLoader)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServerlessFrontend({"s": ServerSpec("s", 1e9, 1e9, 1 << 30)})
+    store = ModelStore.from_params(Model(cfg), params)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        StreamedStageLoader(store, FetchSchedule.single(1e9))
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -107,7 +116,8 @@ def test_params_must_sit_on_the_engine_device():
 def test_cpu_kernel_wrappers_refuse_cpu_tensors():
     """The CUDA wrappers take CUDA tensors only: the plain version is
     reached through ops' dispatch on a CPU tensor, never by a fallback."""
-    from repro_torch.kernels import decode_attention, ragged_attention
+    from repro_torch.kernels import (decode_attention, flash_attention,
+                                     ragged_attention)
 
     q = torch.zeros(8, 4, 16)
     pages = torch.zeros(3, 4, 2, 16)
@@ -120,6 +130,12 @@ def test_cpu_kernel_wrappers_refuse_cpu_tensors():
         decode_attention.paged_decode_attention(
             q[:1, None], pages, pages, tables,
             torch.ones(1, dtype=torch.int32))
+    cache = torch.zeros(1, 8, 2, 16)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        decode_attention.decode_attention(q[:1, None], cache, cache,
+                                          torch.ones(1, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        flash_attention.flash_attention(q[None], cache, cache)
 
 
 def test_not_ported_options_raise():
@@ -128,7 +144,7 @@ def test_not_ported_options_raise():
 
     cfg = _cfg()
     params = Model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
-    for kw in ({"paged": False}, {"kv_tier": object(), "prefix_cache": True},
+    for kw in ({"kv_tier": object(), "prefix_cache": True},
                {"sanitize": True}):
         with pytest.raises(NotImplementedError):
             Engine(cfg, [params], device="cpu", **kw)
