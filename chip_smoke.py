@@ -18,13 +18,17 @@ Run from the root of a checkout. Phases:
    the paged decode kernel at batch 4 with kv_len up to 1,024, flash
    attention at batch 1, causal, Sq = Sk = 300 and 412, and the contiguous
    decode kernel at batch 4, S 1,024, kv_len 1,024/777/300/1 (and a
-   kv_len 0 row, exactly 0), each output row (token, head) held to 2^-7 of
-   its largest |value| plus 1e-4 (bf16 output rounding is at most 2^-8 of
-   it); and f32 cases at hd 16 held to 1e-5 with TF32 off. Times (CUDA
-   events, median of repeats, L2 flushed before each) of the kernel, its
-   plain version and one PyTorch library call for the same function (SDPA
-   on gathered K/V, never called by the port), beside the least time the
-   card could take.
+   kv_len 0 row, exactly 0), and the WKV6 recurrence at rwkv6-1.6b's
+   shapes (H 32, hd 64, bf16 r/k/v, float32 w and u: prefills of B 1, T 412
+   and 300 from a zero and a random state, a decode step of B 4, T 1 with
+   its state written in place), each output row (token, head) held to 2^-7
+   of its largest |value| plus 1e-4 (bf16 output rounding is at most 2^-8
+   of it) and a WKV6 final state to 1e-4 of its largest |value|; and f32
+   cases at hd 16 held to 1e-5 with TF32 off. Times (CUDA events, median of
+   repeats, L2 flushed before each) of the kernel, its plain version and
+   one PyTorch library call for the same function where there is one (SDPA
+   on gathered K/V, never called by the port; none computes WKV6), beside
+   the least time the card could take.
 3. serve: full-depth, full-width granite-3-8b (40 layers, d 4096, bf16) on
    random weights from a seeded generator. A ``ServingEndpoint`` over a
    2-stage paged engine serves 4 requests (prefill_chunk 256, max_new 32),
@@ -56,15 +60,25 @@ Run from the root of a checkout. Phases:
    from one prefill of the shared context on each layout: the contiguous
    top-2 margin there beside how far the layout moves the logits
    (reported, not asserted).
-5. disk tier: full width, depth cut to 4 layers. A store written by
+5. rwkv cold start, the path of the WKV6 kernel: the same frontend deploys
+   full-width, full-depth rwkv6-1.6b (24 layers, d 2048, 32 heads of 64,
+   d_ff 7168, vocab 65536, random bf16 weights from a seeded generator),
+   cold-starts it to 2 slot-contiguous stages, serves the same 4 requests
+   and consolidates through ``full_params`` after 4 tokens. Its streams must
+   equal a 1-stage contiguous engine's and a 1-stage paged engine's on the
+   same weights, exactly (an attention-free model runs the same kernels in
+   the same order on either layout); its launches must show ``wkv6`` > 0
+   and every attention kernel at 0. Printed as for phase 4, with a
+   profiled window of the 1-stage contiguous engine.
+6. disk tier: full width, depth cut to 4 layers. A store written by
    ``deploy(..., store_dir=...)`` (inside the checkout, deleted after) is
    cold-deployed (``params=None``) by a second frontend, which must serve
    the memory tier's streams on the same weights.
 
 Any failed check raises, and the script exits nonzero without a result
-line. On success the second-to-last line is the ``kernels`` JSON (the
-ported kernels; the TPU kernels still to port under ``not_ported``) and
-the last line is ``{"ok": true, "device": {...}}``.
+line. On success the second-to-last line is the ``kernels`` JSON (every
+ported kernel; ``not_ported`` is empty now that every TPU kernel has its
+counterpart) and the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -99,15 +113,26 @@ def log(*a):
 # ---------------------------------------------------------------------------
 
 
-def time_ms(torch, fn, reps=20, warmup=3, flush=None):
+HOLD_CYCLES = 2_000_000   # ~1 ms of the card spinning: covers a wrapper's
+                          # host-side checks and launch
+
+
+def time_ms(torch, fn, reps=20, warmup=3, flush=None, hold=True):
     """Median of ``reps`` CUDA-event timings of ``fn()``, L2 flushed before
-    each (``flush`` is a >50 MB buffer the flush overwrites)."""
+    each (``flush`` is a >50 MB buffer the flush overwrites). With ``hold``
+    the card spins (``torch.cuda._sleep``) after the flush while the host
+    enqueues the start event and ``fn``'s launches, so a kernel shorter than
+    its wrapper's host-side work is timed alone, not with the card idling
+    until the launch arrives; work whose host side outlasts the spin (the
+    plain versions' many small launches) still counts its host time."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         if flush is not None:
             flush.zero_()
+        if hold:
+            torch.cuda._sleep(HOLD_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -117,6 +142,14 @@ def time_ms(torch, fn, reps=20, warmup=3, flush=None):
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+def kernel_ms(torch, fn, reps, flush):
+    """A kernel's time with the card held through the enqueue (``ms``),
+    and without the hold, the card idle until the launch arrives
+    (``ms_host_gap``: the wrapper's host-side work included)."""
+    return {"ms": time_ms(torch, fn, reps, flush=flush),
+            "ms_host_gap": time_ms(torch, fn, reps, flush=flush, hold=False)}
 
 
 def bound_ms(n_bytes, flops, peak):
@@ -314,8 +347,8 @@ def kernel_phase(torch, quick):
     nbytes, flops = ragged_cost(q, 2 * HKV * HD * 2, tb, row, pos, HKV, HD)
     b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS)
     rows["ragged_paged_attention"] = dict(
-        ms=time_ms(torch, lambda: kra.ragged_paged_attention(
-            q, k, v, tb, row, pos), reps, flush=flush),
+        **kernel_ms(torch, lambda: kra.ragged_paged_attention(
+            q, k, v, tb, row, pos), reps, flush),
         plain_ms=time_ms(torch, lambda: ref.ragged_paged_attention_reference(
             q, k, v, tb, row, pos), max(3, reps // 4), 1, flush),
         library_ms=time_ms(torch, sdpa_ragged(torch, q, k, v, tb, row, pos),
@@ -328,8 +361,8 @@ def kernel_phase(torch, quick):
     kdq = ref.dequantize_kv(kq, ks, kz).to(torch.bfloat16)
     vdq = ref.dequantize_kv(vq, vs, vz).to(torch.bfloat16)
     rows["ragged_paged_attention_q8"] = dict(
-        ms=time_ms(torch, lambda: kra.ragged_paged_attention(
-            q, kq, vq, tb, row, pos, kv_quant=quant), reps, flush=flush),
+        **kernel_ms(torch, lambda: kra.ragged_paged_attention(
+            q, kq, vq, tb, row, pos, kv_quant=quant), reps, flush),
         plain_ms=time_ms(torch, lambda: ref.ragged_paged_attention_reference(
             q, kq, vq, tb, row, pos, kv_quant=quant), max(3, reps // 4), 1,
             flush),
@@ -370,8 +403,8 @@ def kernel_phase(torch, quick):
     flops = sum(4 * Hq * HD * n for n in lens)
     b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS)
     rows["paged_decode_attention"] = dict(
-        ms=time_ms(torch, lambda: kda.paged_decode_attention(
-            qd, kd_, vd, tbd, kl), reps, flush=flush),
+        **kernel_ms(torch, lambda: kda.paged_decode_attention(
+            qd, kd_, vd, tbd, kl), reps, flush),
         plain_ms=time_ms(torch, lambda: ref.paged_decode_attention_reference(
             qd, kd_, vd, tbd, kl), reps, flush=flush),
         library_ms=time_ms(torch, sdpa_decode(torch, qd, kd_, vd, tbd, kl),
@@ -407,8 +440,8 @@ def kernel_phase(torch, quick):
         flops = 4 * Hq * HD * sq * (sq + 1) // 2
         b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS)
         flash[sq] = dict(
-            ms=time_ms(torch, lambda: kfa.flash_attention(q, k, v), reps,
-                       flush=flush),
+            **kernel_ms(torch, lambda: kfa.flash_attention(q, k, v), reps,
+                        flush),
             plain_ms=time_ms(torch, lambda: ref.mha_reference(q, k, v),
                              reps, flush=flush),
             library_ms=time_ms(torch, sdpa_flash(torch, q, k, v), reps,
@@ -447,8 +480,8 @@ def kernel_phase(torch, quick):
     flops = sum(4 * Hq * HD * n for n in lens)
     b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS)
     rows["decode_attention"] = dict(
-        ms=time_ms(torch, lambda: kda.decode_attention(qd, kc, vc, kl), reps,
-                   flush=flush),
+        **kernel_ms(torch, lambda: kda.decode_attention(qd, kc, vc, kl),
+                    reps, flush),
         plain_ms=time_ms(torch, lambda: ref.decode_attention_reference(
             qd, kc, vc, kl), reps, flush=flush),
         library_ms=time_ms(torch, sdpa_contig_decode(torch, qd, kc, vc, kl),
@@ -456,11 +489,108 @@ def kernel_phase(torch, quick):
         bound_ms=b_ms, bound_by=b_by, max_abs_err=err[0],
         err_over_tol=err[1])
 
+    rows["wkv6"] = wkv6_checks(torch, reps, flush)
+
     for name, r in rows.items():
+        lib = (f"{r['library_ms']:.4f} ms" if r["library_ms"] is not None
+               else "none: no one PyTorch call computes it")
         log(f"  {name}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "
-            f"{r['bound_by']}, plain {r['plain_ms']:.4f} ms, library "
-            f"{r['library_ms']:.4f} ms)")
+            f"{r['bound_by']}, plain {r['plain_ms']:.4f} ms, library {lib}; "
+            f"timed without the hold, the card idle until the launch: "
+            f"{r['ms_host_gap']:.4f} ms)")
     return rows
+
+
+STATE_REL = 1e-4   # float32 over <= 412 steps, summed in another order
+
+
+def check_state(name, got, want):
+    """A WKV6 final state (float32) against its plain version: the largest
+    error within STATE_REL of the state's largest |value|."""
+    err = float((got - want).abs().max())
+    lim = STATE_REL * float(want.abs().max())
+    if not math.isfinite(err) or err > lim:
+        raise AssertionError(f"{name}: state max abs err {err:.3e} > {lim:.3e}")
+    log(f"  {name}: state max abs err {err:.3e} (limit {lim:.3e})")
+    return err
+
+
+def wkv6_checks(torch, reps, flush):
+    """The WKV6 kernel against its plain version: float32 at hd 16, then
+    rwkv6-1.6b's prefill and decode shapes. Returns the kernel's row: the
+    prefill at T 412 from the cache's (zero) state, updated in place, as
+    the main path calls it."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import wkv6 as kwkv
+    from repro_torch.configs import get_config
+    cfg = get_config("rwkv6-1.6b")
+    h, hd = cfg.n_heads, cfg.head_dim
+    g = torch.Generator(device="cuda").manual_seed(6)
+
+    def inputs(b, t, heads, n, dtype):
+        r, k, v, w = (torch.randn((b, t, heads, n), generator=g,
+                                  device="cuda") * 0.5 for _ in range(4))
+        u = torch.randn((heads, n), generator=g, device="cuda") * 0.5
+        s0 = torch.randn((b, heads, n, n), generator=g, device="cuda") * 0.1
+        return [x.to(dtype) for x in (r, k, v)] + [w, u, s0]
+
+    r, k, v, w, u, s0 = inputs(2, 45, 4, 16, torch.float32)
+    y, s_t = kwkv.wkv6(r, k, v, w, u, s0)
+    want_y, want_s = ref.wkv6_reference(r, k, v, w, u, s0)
+    check("wkv6 f32 hd16 y", y, want_y, 1e-5)
+    check("wkv6 f32 hd16 state", s_t, want_s, 1e-5)
+
+    def held(label, r, k, v, w, u, s0, in_place):
+        want_y, want_s = ref.wkv6_reference(r.float(), k.float(), v.float(),
+                                            w, u, s0)
+        s = s0.clone() if (in_place and s0 is not None) else s0
+        y, s_t = kwkv.wkv6(r, k, v, w, u, s,
+                           out_state=s if in_place else None)
+        torch.cuda.synchronize()
+        err = check_rows(f"wkv6 {label} y", y, want_y)
+        check_state(f"wkv6 {label}", s_t, want_s)
+        return err
+
+    row = None
+    for t in (300, 412):
+        r, k, v, w, u, s0 = inputs(1, t, h, hd, torch.bfloat16)
+        held(f"bf16 B1 T{t} zero state", r, k, v, w, u, None, False)
+        err = held(f"bf16 B1 T{t} random state", r, k, v, w, u, s0, True)
+        state = torch.zeros_like(s0)
+        b_ms, b_by = bound_ms(*wkv6_cost(r, w, state), F32_FLOPS)
+        res = dict(
+            **kernel_ms(torch, lambda: kwkv.wkv6(r, k, v, w, u, state,
+                                                 out_state=state), reps,
+                        flush),
+            plain_ms=time_ms(torch, lambda: ref.wkv6_reference(
+                r, k, v, w, u, state), max(3, reps // 4), 1, flush),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by,
+            max_abs_err=err[0], err_over_tol=err[1])
+        log(f"  wkv6 B1 T{t} (prefill): {res}")
+        row = res
+    r, k, v, w, u, s0 = inputs(4, 1, h, hd, torch.bfloat16)
+    held("bf16 B4 T1 (decode) in place", r, k, v, w, u, s0, True)
+    b_ms, b_by = bound_ms(*wkv6_cost(r, w, s0), F32_FLOPS)
+    dec = dict(**kernel_ms(torch, lambda: kwkv.wkv6(r, k, v, w, u, s0,
+                                                    out_state=s0), reps,
+                           flush),
+               plain_ms=time_ms(torch, lambda: ref.wkv6_reference(
+                   r, k, v, w, u, s0), reps, flush=flush),
+               bound_ms=b_ms, bound_by=b_by)
+    log(f"  wkv6 B4 T1 (decode): {dec}")
+    return row
+
+
+def wkv6_cost(r, w, state):
+    """Bytes WKV6 must move (r, k, v read and y written in r's dtype, w
+    read, the state read and written) and its float32 operations: per step
+    and head, r.S and the rank-1 state update, an FMA (2 operations) per
+    state entry each: 4 hd^2 (the O(hd) terms left out)."""
+    b, t, h, n = r.shape
+    elems = b * t * h * n
+    n_bytes = (4 * elems * r.element_size() + elems * w.element_size()
+               + h * n * 4 + 2 * state.numel() * 4)
+    return n_bytes, 4 * n * n * b * t * h
 
 
 # ---------------------------------------------------------------------------
@@ -524,9 +654,18 @@ def profile_steps(torch, ep, n=4):
         if e.device_type == DeviceType.CUDA:
             kern[e.key] = e.device_time_total / 1e3 / n      # ms per step
     top = sorted(kern.items(), key=lambda kv: -kv[1])[:6]
+    ours = {name: sum(v for k, v in kern.items()
+                      if f"::{name}<" in k)
+            for name in PORT_KERNELS}
     return {"steps": n, "device_ms_per_step": sum(kern.values()),
             "profiled_wall_ms_per_step": wall * 1e3 / n,
-            "top_kernels_ms_per_step": {k[:60]: v for k, v in top}}
+            "top_kernels_ms_per_step": {k[:60]: v for k, v in top},
+            "port_kernels_ms_per_step": {k: v for k, v in ours.items() if v}}
+
+
+# the __global__ functions of src/repro_torch/csrc, as the profiler names them
+PORT_KERNELS = ("ragged_kernel", "paged_decode_kernel", "flash_kernel",
+                "decode_kernel", "wkv6_kernel")
 
 
 def divergence_witness(torch, model, params, prompts, streams, q8_streams):
@@ -947,6 +1086,137 @@ def coldstart_phase(torch, prompts):
     return {k: counts[k] for k in ("flash_attention", "decode_attention")}
 
 
+ATTN_KERNELS = ("ragged_paged_attention", "ragged_paged_attention_q8",
+                "paged_decode_attention", "flash_attention",
+                "decode_attention")
+
+
+def rwkv_phase(torch):
+    """The path of the WKV6 kernel: rwkv6-1.6b at full width and depth
+    through the same cold start as phase 4 (``ServerlessFrontend`` ->
+    memory tier -> Alg. 1 -> 2 slot-contiguous stages -> consolidation
+    through ``full_params``), held exactly against 1-stage contiguous and
+    paged engines on the same weights. Returns the wkv6 launch count of
+    its serve."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+    from repro_torch.serving.endpoint import ServingEndpoint
+    from repro_torch.serving.engine import Engine
+
+    cfg = get_config("rwkv6-1.6b")
+    model = Model(cfg)
+    name = cfg.name
+    prompts = main_prompts(cfg.vocab)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(a.numel() for a in _leaves(params))
+    state_bytes = cfg.n_layers * (cfg.n_heads * cfg.head_dim ** 2 * 4
+                                  + cfg.d_model * 2)
+    log(f"  rwkv6-1.6b: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads} heads of {cfg.head_dim}, {n_params / 1e9:.3f} B "
+        f"params in {cfg.dtype} ({model.bytes() / 1e9:.3f} GB), drawn in "
+        f"{time.perf_counter() - t0:.1f} s; recurrent state "
+        f"{state_bytes / 1e6:.2f} MB a slot")
+    front = frontend(torch)
+    t0 = time.perf_counter()
+    store = front.deploy(cfg, params, profile_of(model))
+    deploy_s = time.perf_counter() - t0
+    del params
+    torch.cuda.empty_cache()
+    log(f"  deployed {store.total_bytes / 2**30:.2f} GiB into the memory "
+        f"tier ({len(store.manifest.chunks)} chunks) in {deploy_s:.1f} s")
+
+    loads = []
+    ep = cold_start(torch, front, name, loads)
+    sch = ep.scheme
+    log(f"  Alg. 1 scheme: s={sch.s} w={sch.w} servers={sch.servers} "
+        f"pred_ttft={sch.predicted_ttft:.3f} s pred_tpot="
+        f"{sch.predicted_tpot:.4f} s slo_ok={sch.slo_ok} -> "
+        f"{ep.n_stages}-stage pipeline")
+    timeline = ep.cold_start_timeline.to_json()
+    for st in timeline["stages"]:
+        log(f"  cold-start timeline (simulated clock), stage {st['stage']}"
+            f" on {st['server']}: ready {st['ready']:.3f} s, spans "
+            + ", ".join(f"{k} {a:.3f}-{b:.3f}"
+                        for k, (a, b) in st["spans"].items()))
+    if ep.n_stages != 2 or ep.paged:
+        raise AssertionError("expected a 2-stage slot-contiguous endpoint")
+
+    front.full_params = timed(torch, front.full_params, loads, "full_params")
+    ops.reset_launch_counts()
+    streams, steps, _ = drive(torch, ep, prompts, consolidate_after=4,
+                              consolidate=lambda: front.consolidate(ep, name))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    log(f"  launches on the rwkv path: {counts}")
+    if ep.n_stages != 1:
+        raise AssertionError("endpoint was not consolidated")
+    if counts["wkv6"] <= 0:
+        raise AssertionError("wkv6 never launched on the rwkv path")
+    for k in ATTN_KERNELS:
+        if counts[k] != 0:
+            raise AssertionError(f"{k} launched on an attention-free model")
+    rates = load_rates(loads, store, 2)
+    for label, r in rates.items():
+        log(f"  measured wall time of {label} (host -> card): "
+            f"{r['seconds']:.3f} s for {r['bytes'] / 2**30:.2f} GiB, "
+            f"{r['GB_per_s']:.2f} GB/s")
+    results = {"2-stage -> consolidated, contiguous": step_stats(steps)}
+
+    full = ep.engine.workers[0].params
+    del ep
+    one = ServingEndpoint(Engine(cfg, [full], paged=False, device="cuda",
+                                 **SERVE_KW))
+    one_streams, one_steps, one_prof = drive(torch, one, prompts,
+                                             profile_at=PROFILE_AT)
+    results["1-stage, contiguous"] = step_stats(one_steps)
+    del one
+    paged = ServingEndpoint(Engine(cfg, [full], paged=True, block_size=16,
+                                   device="cuda", **SERVE_KW))
+    pg_streams, pg_steps, _ = drive(torch, paged, prompts)
+    results["1-stage, paged"] = step_stats(pg_steps)
+    del paged, full
+    for label, other in (("1-stage contiguous", one_streams),
+                         ("1-stage paged", pg_streams)):
+        if streams != other:
+            raise AssertionError(f"rwkv cold start + consolidation streams "
+                                 f"differ from the {label} engine's:\n"
+                                 f"{streams}\n{other}")
+    if not all(len(s) == MAX_NEW and all(0 <= t < cfg.vocab for t in s)
+               for s in streams):
+        raise AssertionError(f"bad streams {streams}")
+    log("  streams: rwkv cold start 2-stage + consolidation == 1-stage "
+        f"contiguous == 1-stage paged (first request: {streams[0][:8]} ...)")
+    for label, r in results.items():
+        log(f"  {label}: prefill {r['prefill_tok_s']:.1f} tok/s, decode "
+            f"{r['decode_tok_s']:.1f} tok/s, decode step p50 "
+            f"{r['decode_step_ms_p50']:.2f} ms p99 "
+            f"{r['decode_step_ms_p99']:.2f} ms, {r['steps']} steps")
+    if one_prof is None:
+        raise AssertionError("1-stage contiguous: nothing profiled")
+    busy = (one_prof["device_ms_per_step"]
+            / results["1-stage, contiguous"]["decode_step_ms_p50"])
+    log(f"  1-stage contiguous, {one_prof['steps']} decode steps profiled: "
+        f"device {one_prof['device_ms_per_step']:.2f} ms a step (profiled "
+        f"wall {one_prof['profiled_wall_ms_per_step']:.2f} ms), busy "
+        f"{busy:.3f} of the unprofiled decode-step p50; top kernels "
+        f"{one_prof['top_kernels_ms_per_step']}; the port's kernels "
+        f"{one_prof['port_kernels_ms_per_step']}")
+    log("RWKV " + json.dumps({
+        "scheme": {"s": sch.s, "w": sch.w, "servers": list(sch.servers),
+                   "predicted_ttft_s": sch.predicted_ttft,
+                   "predicted_tpot_s": sch.predicted_tpot,
+                   "slo_ok": sch.slo_ok},
+        "timeline_simulated": timeline, "deploy_s": deploy_s,
+        "loads_measured": rates, "results": results, "launches": counts,
+        "state_bytes_per_slot": state_bytes, "streams_equal": True,
+        "profile": one_prof, "device_busy": busy}))
+    return {"wkv6": counts["wkv6"]}
+
+
 def disk_tier_phase(torch, prompts):
     """Full width, depth cut to 4 layers: the memory tier's streams against
     a cold deploy (``params=None``) from an on-disk store written by
@@ -1024,9 +1294,7 @@ KERNELS = [
      "src/repro/kernels/flash_attention.py:69"),
     ("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
      "src/repro/kernels/decode_attention.py:85"),
-]
-NOT_PORTED = [
-    ("wkv6", "src/repro/kernels/wkv6.py:66"),
+    ("wkv6", "src/repro_torch/csrc/wkv6.cu", "src/repro/kernels/wkv6.py:66"),
 ]
 
 
@@ -1085,6 +1353,11 @@ def main():
         launches.update(coldstart_phase(torch, prompts))
         gc.collect()
         torch.cuda.empty_cache()
+        log("== rwkv6-1.6b cold start through the ServerlessFrontend at full "
+            "width and depth (the wkv6 kernel's path)")
+        launches.update(rwkv_phase(torch))
+        gc.collect()
+        torch.cuda.empty_cache()
         log("== disk tier: cold deploy from an on-disk store (full width, "
             "4 layers)")
         disk_tier_phase(torch, prompts)
@@ -1099,11 +1372,8 @@ def main():
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"],
                         "err_over_tol": r["err_over_tol"]})
-    # the TPU kernel not ported yet, off the port's paths: named beside the
-    # ported ones so the line covers every pl.pallas_call of the repo
-    not_ported = [{"name": name, "status": "not ported yet",
-                   "replaces": replaces} for name, replaces in NOT_PORTED]
-    print(json.dumps({"kernels": kernels, "not_ported": not_ported}))
+    # every pl.pallas_call of the repo has its kernel above
+    print(json.dumps({"kernels": kernels, "not_ported": []}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

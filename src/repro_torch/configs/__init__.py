@@ -1,11 +1,12 @@
-"""Architecture configs (the port's slice: granite-3-8b). ``load_all()``
-imports every arch module so that ``get_config(name)`` can resolve by
-name."""
+"""Architecture configs (the port's slices: granite-3-8b, rwkv6-1.6b).
+``load_all()`` imports every arch module so that ``get_config(name)`` can
+resolve by name."""
 
 import importlib
 
 _ARCH_MODULES = [
     "granite_3_8b",
+    "rwkv6_1_6b",
 ]
 
 _loaded = False

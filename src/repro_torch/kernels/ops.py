@@ -6,7 +6,7 @@ kernel, which launches or raises. There is no switch that runs the plain
 version on the card.
 
 Each kernel counts its launches (``launch_counts``), so a run can show
-that its attention went through the kernels.
+that its attention and its recurrences went through the kernels.
 """
 
 from __future__ import annotations
@@ -17,8 +17,9 @@ from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ragged_attention as _ra
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import wkv6 as _wkv
 
-_COUNTS = (_ra.LAUNCHES, _da.LAUNCHES, _fa.LAUNCHES)
+_COUNTS = (_ra.LAUNCHES, _da.LAUNCHES, _fa.LAUNCHES, _wkv.LAUNCHES)
 
 
 def _on_card(t) -> bool:
@@ -86,3 +87,20 @@ def ragged_paged_attention(q, k_pages, v_pages, tables, row, pos, *,
                                           pos, kv_quant=kv_quant)
     return _ref.ragged_paged_attention_reference(
         q, k_pages, v_pages, tables, row, pos, kv_quant=kv_quant)
+
+
+def wkv6(r, k, v, w, u, initial_state=None, *, chunk: int = 64,
+         out_state=None):
+    """RWKV6 recurrence. r, k, v, w (B,T,H,hd); u (H,hd) float32;
+    initial_state (B,H,hd,hd) float32 or None. Returns (y in r's dtype,
+    final state float32); with ``out_state`` the final state is written
+    there (it may be ``initial_state``: the recurrence's state updated in
+    place). ``chunk`` is the plain version's time chunk; the kernel needs
+    none."""
+    if _on_card(r):
+        return _wkv.wkv6(r, k, v, w, u, initial_state, out_state=out_state)
+    y, s = _ref.wkv6_chunked(r, k, v, w, u, initial_state, chunk=chunk)
+    if out_state is not None:
+        out_state.copy_(s)
+        s = out_state
+    return y, s

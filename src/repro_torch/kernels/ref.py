@@ -13,6 +13,9 @@ Scores, softmax and accumulation run in float32 and the output is cast to
 q's dtype. A masked key takes no part in the sum (its probability is
 zeroed before the product), and a row with no valid key at all (a pad
 token, ``kv_len == 0``) comes back exactly 0: ``acc / max(l, 1e-30)``.
+
+The last section is RWKV6's recurrence (``wkv6``): r, k, v, w (B, T, H, hd),
+u (H, hd), a float32 state (B, H, hd, hd) per sequence.
 """
 
 from __future__ import annotations
@@ -194,3 +197,56 @@ def paged_decode_attention_reference(q, k_pages, v_pages, block_tables,
     out = _masked_softmax_av(s, mask[:, None, None, :],
                              vf.permute(0, 2, 1, 3))          # (B,Hkv,G,hd)
     return out.reshape(b, 1, hq, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# WKV6 (RWKV6 'Finch') recurrence, per (batch, head), sequential in time:
+#   y_t = (S_{t-1} + diag(u) k_t v_t^T)^T r_t
+#   S_t = diag(exp(-exp(w_t))) S_{t-1} + k_t v_t^T
+# ---------------------------------------------------------------------------
+
+
+def wkv6_reference(r, k, v, w, u, initial_state=None):
+    """Plain version of ``wkv6``: a loop over t in float32.
+
+    r, k, v, w (B,T,H,hd); u (H,hd); initial_state (B,H,hd,hd) float32 or
+    None (zeros). Row i of a head's state is key channel i, column j value
+    channel j. Returns (y (B,T,H,hd) in r's dtype, final state (B,H,hd,hd)
+    float32)."""
+    b, t, h, n = r.shape
+    f32 = torch.float32
+    S = (torch.zeros((b, h, n, n), dtype=f32, device=r.device)
+         if initial_state is None else initial_state.to(f32))
+    rf, kf, vf, wf = (x.to(f32) for x in (r, k, v, w))
+    uf = u.to(f32)[None, :, :, None]                       # (1,H,hd,1)
+    ys = []
+    for i in range(t):
+        kv = kf[:, i, :, :, None] * vf[:, i, :, None, :]   # (B,H,hd,hd)
+        ys.append(torch.einsum("bhi,bhij->bhj", rf[:, i], S + uf * kv))
+        S = torch.exp(-torch.exp(wf[:, i]))[..., None] * S + kv
+    y = torch.stack(ys, 1) if ys else rf.new_zeros((b, 0, h, n))
+    return y.to(r.dtype), S
+
+
+def wkv6_chunked(r, k, v, w, u, initial_state=None, chunk: int = 64):
+    """The reference's chunked form of the same recurrence (its TPU kernel's
+    layout): T padded to a multiple of ``chunk`` (r/k/v with 0, w with -1e9,
+    so a padded step leaves the state as it was), then one
+    ``wkv6_reference`` per chunk carrying the state."""
+    b, t, h, n = r.shape
+    if t <= chunk:
+        return wkv6_reference(r, k, v, w, u, initial_state)
+    pad = (-t) % chunk
+    rf, kf, vf, wf = (x.to(torch.float32) for x in (r, k, v, w))
+    if pad:
+        def grow(x, value):
+            return torch.cat([x, x.new_full((b, pad, h, n), value)], dim=1)
+        rf, kf, vf = (grow(x, 0.0) for x in (rf, kf, vf))
+        wf = grow(wf, -1e9)
+    S, ys = initial_state, []
+    for c0 in range(0, t + pad, chunk):
+        sl = slice(c0, c0 + chunk)
+        y, S = wkv6_reference(rf[:, sl], kf[:, sl], vf[:, sl], wf[:, sl], u,
+                              S)
+        ys.append(y)
+    return torch.cat(ys, dim=1)[:, :t].to(r.dtype), S

@@ -54,10 +54,17 @@ class Model:
         "block_tables": (B,nb) int32}. ``paged=False``: through
         ``flash_attention`` into fresh slot-contiguous slabs (the
         reference's ``Model.prefill``); the cache is the per-period
-        {"k", "v"} slabs. Returns (last-token logits (B,V), cache)."""
+        {"k", "v"} slabs. rwkv slots carry their recurrent {"shift",
+        "wkv"} states from zero; the ragged route is attention-only, so a
+        model with a recurrent mixer takes ``paged=False``. Returns
+        (last-token logits (B,V), cache)."""
         cfg = self.cfg
         dev = params["final_norm"].device
         b, s = tokens.shape
+        if paged and not transformer.attn_only(cfg):
+            raise ValueError(f"{cfg.name}: the paged prefill is the ragged "
+                             f"step, which serves attention-only models; "
+                             f"prefill with paged=False")
         if not paged:
             cache = transformer.init_cache(cfg, b, max_seq, self.dtype,
                                            kv_dtype=kv_dtype, device=dev)

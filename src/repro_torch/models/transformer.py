@@ -1,5 +1,5 @@
-"""Decoder LM over a repeated *period* of layers (the port's slice:
-attention mixers with dense MLPs).
+"""Decoder LM over a repeated *period* of layers (the port's slices:
+attention and rwkv mixers, each with a dense MLP).
 
 Params are stacked over periods on axis 0, as in the reference; where the
 reference scans the periods with ``lax.scan``, ``run_blocks`` loops over
@@ -18,8 +18,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.common import (ParamDef, as_dtype, rmsnorm,
-                                       stack_defs, tree_map)
+                                       stack_defs, tree_leaves, tree_map)
 
 
 def _period_plan(cfg: ModelConfig):
@@ -29,11 +30,23 @@ def _period_plan(cfg: ModelConfig):
 
 def _check_supported(cfg: ModelConfig):
     for mix, mlp in _period_plan(cfg):
-        if mix != "attn" or mlp != "dense" or cfg.is_encdec:
+        if mix not in ("attn", "rwkv") or mlp != "dense" or cfg.is_encdec:
             raise NotImplementedError(
-                f"{cfg.name}: the port serves attention mixers with dense "
-                f"MLPs (got {mix}/{mlp}); mamba, rwkv, MoE and enc-dec are "
+                f"{cfg.name}: the port serves attention and rwkv mixers with "
+                f"dense MLPs (got {mix}/{mlp}); mamba, MoE and enc-dec are "
                 f"not ported yet")
+
+
+def attn_only(cfg: ModelConfig) -> bool:
+    """Every mixer is attention: the ragged step, the prefix cache, chunked
+    prefill and int8 pages serve only such models, as in the reference."""
+    return all(m == "attn" for m in cfg.mixer_pattern) and not cfg.is_encdec
+
+
+def is_attn_cache(sub: dict) -> bool:
+    """Whether a slot's cache holds attention K/V (contiguous slabs or page
+    pools), not a recurrent mixer's per-slot state."""
+    return "k" in sub or "k_pages" in sub
 
 
 # ---------------------------------------------------------------------------
@@ -43,9 +56,10 @@ def _check_supported(cfg: ModelConfig):
 
 def block_defs(cfg: ModelConfig) -> dict:
     _check_supported(cfg)
-    return {f"slot{i:02d}": {"mixer": attn.attn_defs(cfg),
+    mixers = {"attn": attn.attn_defs, "rwkv": rwkv_mod.rwkv_defs}
+    return {f"slot{i:02d}": {"mixer": mixers[mix](cfg),
                              "mlp": mlp_mod.dense_mlp_defs(cfg)}
-            for i in range(len(cfg.mixer_pattern))}
+            for i, (mix, _) in enumerate(_period_plan(cfg))}
 
 
 def lm_defs(cfg: ModelConfig) -> dict:
@@ -71,28 +85,33 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype, *,
                n_periods: Optional[int] = None, paged: bool = False,
                n_pages: Optional[int] = None,
                page_size: Optional[int] = None, kv_dtype=None, device=None):
-    """Stacked per-period KV caches, zero-filled. ``paged=False``: the
-    slot-contiguous slabs {"k", "v"} (np, B, S, Hkv, hd), as the reference's
-    ``transformer.py::init_cache``. ``paged=True``: shared page pools
-    {"k_pages", "v_pages"} (np, N, bs, Hkv, hd); pad and idle-slot writes
-    land on the null/trash page, and no pool row that attention may reach
-    ever holds NaN. ``kv_dtype`` (paged only) overrides the pool storage
-    dtype; int8 adds per-row scale/zero leaves (attention.KV_QUANT_LEAVES,
-    f32)."""
+    """Stacked per-period caches, zero-filled, as the reference's
+    ``transformer.py::init_cache``. Attention slots: ``paged=False``, the
+    slot-contiguous slabs {"k", "v"} (np, B, S, Hkv, hd); ``paged=True``,
+    shared page pools {"k_pages", "v_pages"} (np, N, bs, Hkv, hd) where pad
+    and idle-slot writes land on the null/trash page, and no pool row that
+    attention may reach ever holds NaN. ``kv_dtype`` (paged only) overrides
+    the pool storage dtype; int8 adds per-row scale/zero leaves
+    (attention.KV_QUANT_LEAVES, f32). rwkv slots hold their slot-indexed
+    {"shift", "wkv"} states on either layout."""
     _check_supported(cfg)
     np_ = n_periods if n_periods is not None else cfg.n_periods
-    if not paged:
-        if kv_dtype is not None:
-            raise ValueError("kv_dtype overrides the *paged* pool storage "
-                             "dtype")
-        return {f"slot{i:02d}": attn.make_kv_cache(cfg, np_, batch, max_seq,
-                                                   dtype, device=device)
-                for i in range(len(cfg.mixer_pattern))}
-    assert n_pages is not None and page_size is not None
+    if kv_dtype is not None and not paged:
+        raise ValueError("kv_dtype overrides the *paged* pool storage dtype")
     kd = as_dtype(kv_dtype if kv_dtype is not None else dtype)
+    if paged:
+        assert n_pages is not None and page_size is not None
     shp = (np_, n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
     cache = {}
-    for i in range(len(cfg.mixer_pattern)):
+    for i, (mix, _) in enumerate(_period_plan(cfg)):
+        if mix == "rwkv":
+            cache[f"slot{i:02d}"] = rwkv_mod.init_rwkv_cache(
+                cfg, np_, batch, as_dtype(dtype), device=device)
+            continue
+        if not paged:
+            cache[f"slot{i:02d}"] = attn.make_kv_cache(
+                cfg, np_, batch, max_seq, dtype, device=device)
+            continue
         slot = {"k_pages": torch.zeros(shp, dtype=kd, device=device),
                 "v_pages": torch.zeros(shp, dtype=kd, device=device)}
         if kd == torch.int8:
@@ -130,25 +149,29 @@ def head(cfg: ModelConfig, params: dict, x):
 
 def _period_step(cfg: ModelConfig, pslice: dict, cslice, x, positions,
                  decode: bool, block_tables=None, ragged=None):
-    for i in range(len(cfg.mixer_pattern)):
+    for i, (mix, _) in enumerate(_period_plan(cfg)):
         slot = f"slot{i:02d}"
         sp = pslice[slot]
         c = cslice.get(slot) if cslice is not None else None
         xin = rmsnorm(x, sp["mixer"]["norm"], cfg.norm_eps)
-        paged = c is not None and "k_pages" in c
-        if paged:
-            kvc = (c["k_pages"], c["v_pages"])
+        if mix == "rwkv":
+            # the shift row and WKV state are written into c in place
+            x = x + rwkv_mod.rwkv_mixer(cfg, sp["mixer"], xin, cache=c)
         else:
-            kvc = (c["k"], c["v"]) if c is not None else None
-        kvq = ({leaf: c[leaf] for leaf in attn.KV_QUANT_LEAVES}
-               if paged and "k_scale" in c else None)
-        y, _ = attn.self_attention(cfg, sp["mixer"], xin,
-                                   positions=positions, kv_cache=kvc,
-                                   decode=decode,
-                                   block_tables=(block_tables if paged
-                                                 else None),
-                                   ragged=ragged, kv_quant=kvq)
-        x = x + y
+            paged = c is not None and "k_pages" in c
+            if paged:
+                kvc = (c["k_pages"], c["v_pages"])
+            else:
+                kvc = (c["k"], c["v"]) if c is not None else None
+            kvq = ({leaf: c[leaf] for leaf in attn.KV_QUANT_LEAVES}
+                   if paged and "k_scale" in c else None)
+            y, _ = attn.self_attention(cfg, sp["mixer"], xin,
+                                       positions=positions, kv_cache=kvc,
+                                       decode=decode,
+                                       block_tables=(block_tables if paged
+                                                     else None),
+                                       ragged=ragged, kv_quant=kvq)
+            x = x + y
         xin = rmsnorm(x, sp["mlp"]["norm"], cfg.norm_eps)
         x = x + mlp_mod.dense_mlp(sp["mlp"], xin)
     return x
@@ -164,8 +187,9 @@ def run_blocks(cfg: ModelConfig, blocks: dict, x, positions, *,
     appended at ``positions``; ``block_tables`` (B,nb) addresses the paged
     pools on a decode step; ``ragged`` = (tables, row, valid) routes
     attention through the fused ragged-batch kernel — x is (1, T, d),
-    positions (1, T) with -1 pads. Returns (x, cache)."""
-    for i in range(blocks["slot00"]["mixer"]["w_q"].shape[0]):
+    positions (1, T) with -1 pads. An rwkv slot's recurrence starts from its
+    cached state and leaves the new one there. Returns (x, cache)."""
+    for i in range(tree_leaves(blocks)[0].shape[0]):
         pslice = tree_map(lambda a: a[i], blocks)
         cslice = tree_map(lambda a: a[i], cache) if cache is not None \
             else None

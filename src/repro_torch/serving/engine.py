@@ -30,6 +30,11 @@ effects. KV layouts (``paged`` flag):
     every slot through ``decode_attention``. The options above need the
     paged layout and are refused, as in the reference.
 
+Recurrent mixer states (rwkv's) are slot-indexed on either layout: a model
+with one prefills one whole prompt at batch 1, its decode steps run the
+``wkv6`` recurrence, and the attention-only options (prefix cache, chunked
+prefill, the fused step, int8 pages) are refused, as in the reference.
+
 The reference's ``paged=None`` follows its ``REPRO_DECODE_MODE`` switch
 (default: slot-contiguous); the port has no such switch and takes None to
 mean the paged layout, so callers ask for ``paged=False``.
@@ -54,6 +59,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import paged_kv_token_bytes
 from repro_torch.models.common import as_dtype
+from repro_torch.models import transformer
 from repro_torch.models.model import Model
 from repro_torch.serving.api import (FinishReason, SamplingParams,
                                      StepOutput, TokenEvent, sample_token)
@@ -85,13 +91,20 @@ class Engine:
                                       "(sanitize=True) is not ported yet")
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.model = Model(cfg)     # attention-only dense decoders only
+        self.model = Model(cfg)     # dense decoders: attention and rwkv
         if paged is None:
             paged = True
         self.paged = paged
-        if (prefix_cache or prefill_chunk is not None) and not paged:
-            raise ValueError("prefix_cache / prefill_chunk need the "
-                             "paged KV layout (Engine(paged=True))")
+        attn_only = transformer.attn_only(cfg)
+        if prefix_cache or prefill_chunk is not None:
+            if not paged:
+                raise ValueError("prefix_cache / prefill_chunk need the "
+                                 "paged KV layout (Engine(paged=True))")
+            if not attn_only:
+                raise ValueError(
+                    "prefix_cache / prefill_chunk need an attention-only "
+                    "decoder: recurrent mixer state is not block-shareable "
+                    f"({cfg.name})")
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError("prefill_chunk must be >= 1")
         if kv_dtype is not None and not paged:
@@ -101,9 +114,15 @@ class Engine:
                      and as_dtype(kv_dtype) == torch.int8)
         if fused is None:
             fused = quantized
-        if fused and not paged:
-            raise ValueError("the fused ragged step needs the paged KV "
-                             "layout (Engine(paged=True))")
+        if fused:
+            if not paged:
+                raise ValueError("the fused ragged step needs the paged KV "
+                                 "layout (Engine(paged=True))")
+            if not attn_only:
+                raise ValueError(
+                    "the fused ragged step needs an attention-only decoder: "
+                    f"recurrent mixers can't share one token axis "
+                    f"({cfg.name})")
         if quantized and not fused:
             raise ValueError("int8 KV pages are only served by the fused "
                              "ragged kernel (fused=True)")

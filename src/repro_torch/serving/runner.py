@@ -13,14 +13,14 @@ cached and re-uploaded only after a row changes. Idle slots point at the
 null page so their (unused) writes never land in a live page; for decode,
 half-prefilled slots are masked out the same way.
 
-On the paged layout every prefill rides the ragged path
-(``forward_batch``), as in the reference for paged attention-only models:
-the flattening is the reference's, tile-aligned spans and power-of-two
-total lengths, so both packages feed the kernels the same layout. On the
-slot-contiguous layout a prefill runs one request at batch 1 over its
-whole prompt into its slot's strip, and a decode runs all ``max_batch``
-slots, idle ones at position 0, as the reference does; there is no block
-table.
+On the paged layout an attention-only model prefills through the ragged
+path (``forward_batch``), as in the reference: the flattening is the
+reference's, tile-aligned spans and power-of-two total lengths, so both
+packages feed the kernels the same layout. Otherwise (the slot-contiguous
+layout, or a model with a recurrent mixer) a prefill runs one request at
+batch 1 over its whole prompt into its slot (``prefill_slot``). A decode
+runs all ``max_batch`` slots, idle ones at position 0, as the reference
+does; the slot-contiguous layout has no block table.
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ragged_attention import TILE_Q
+from repro_torch.models import transformer
 from repro_torch.serving.kvcache import KVInvariantError
 from repro_torch.serving.worker import StageWorker
 
@@ -45,6 +46,7 @@ class ModelRunner:
         self.paged = paged
         self.max_batch = max_batch
         self.kv_dtype = kv_dtype
+        self._attn_only = transformer.attn_only(cfg)
         # one extra trash page: idle slots' block-table rows point here so
         # their (unused) decode writes never land in a live page; the
         # ragged path also routes pad-token writes to it
@@ -116,19 +118,19 @@ class ModelRunner:
     def prefill(self, slot: int, tokens: Sequence[int], start: int, n: int,
                 prefix_embeds=None):
         """One prefill forward over rows [start, start+n) of a request's
-        chain: a one-segment ragged batch on the paged layout, the slot's
-        whole prompt at batch 1 on the contiguous one (``start`` is 0
-        there: no chunking). Returns the last stage's logits at the final
-        row, (1, 1, V)."""
+        chain: a one-segment ragged batch on the paged layout of an
+        attention-only model; otherwise the slot's whole prompt at batch 1
+        (``start`` is 0 there: no chunking). Returns the last stage's
+        logits at the final row, (1, 1, V)."""
         if prefix_embeds is not None:
             raise NotImplementedError("prefix embeddings (VLM prefixes) are "
                                       "not ported yet")
-        if self.paged:
+        if self.paged and self._attn_only:
             h = self.forward_batch([(slot, list(tokens), start)])
             return h[0][None, None]
         if start != 0:
             raise KVInvariantError("chunked prefill requires the paged "
-                                   "layout")
+                                   "layout of an attention-only model")
         if self.tracer is not None:
             self.tracer.on_prefill(slot, start, n)
         h = self._to_dev(np.asarray([list(tokens)], np.int32))
@@ -177,7 +179,7 @@ class ModelRunner:
         tile-aligned (pad tokens get pos = -1 → masked, writes routed to
         the trash page) and the total is bucketed to a power of two. Returns (max_batch, V) logits —
         row i is segment i's last real token's logits."""
-        if not self.paged:
+        if not (self.paged and self._attn_only):
             raise KVInvariantError(
                 "forward_batch requires the paged attention-only layout")
         if not 0 < len(segments) <= self.max_batch:
@@ -233,7 +235,9 @@ class ModelRunner:
         axis. Quantized pools append a 4th element per entry: a dict of
         the scale/zero leaves, concatenated the same way."""
         out = []
-        for name in self.workers[0].cache:
+        for name, sub in self.workers[0].cache.items():
+            if "k_pages" not in sub:
+                continue
             parts = [w.read_page(name, blk) for w in self.workers]
             k = torch.cat([p["k_pages"] for p in parts], dim=0)
             v = torch.cat([p["v_pages"] for p in parts], dim=0)
@@ -264,7 +268,8 @@ class ModelRunner:
                     f"payload periods {k.shape[0]} != pipeline periods {off}")
 
     def clear_slot(self, slot: int):
-        """Zero a vacated slot's contiguous strips on every stage."""
+        """Zero a vacated slot's contiguous strips and recurrent states on
+        every stage."""
         for w in self.workers:
             w.clear_slot(slot)
 

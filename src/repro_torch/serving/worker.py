@@ -7,9 +7,10 @@ Two attention KV layouts, as in the reference:
   * paged: a shared page pool (P, N, bs, Hkv, hd) per attention period,
     addressed through the block tables the engine's BlockManager hands out.
 
-The forwards write new K/V into the caches in place, and so do
-``copy_pages``, ``write_page`` and ``clear_slot`` (the reference rebuilt
-each cache array functionally). Recurrent mixer states are not ported.
+Recurrent mixer states (rwkv's ``shift``/``wkv``) stay slot-indexed in
+both layouts. The forwards write new K/V and states into the caches in
+place, and so do ``copy_pages``, ``write_page`` and ``clear_slot`` (the
+reference rebuilt each cache array functionally).
 """
 
 from __future__ import annotations
@@ -95,15 +96,20 @@ class StageWorker:
 
     @torch.no_grad()
     def prefill_slot(self, x_in, slot: int, positions):
-        """Slot-contiguous prefill of one request (batch 1 inputs: tokens
-        (1, S) on the first stage, hidden (1, S, d) after) over its whole
-        prompt, into cache slot ``slot``: the K/V land at rows [0, S) of
-        the slot's strips, written in place, and the rest of the strips is
-        zeroed (the reference scattered a fresh batch-1 cache into the
-        slot). Last stage returns the final row's logits (1, 1, V)."""
-        if self.paged:
-            raise ValueError("prefill_slot is the slot-contiguous layout's; "
-                             "paged prefills ride forward_ragged")
+        """Prefill of one request (batch 1 inputs: tokens (1, S) on the
+        first stage, hidden (1, S, d) after) over its whole prompt, into
+        cache slot ``slot``, written in place: contiguous K/V land at rows
+        [0, S) of the slot's strips, and every recurrent state of the slot
+        starts from zero (the reference scattered a fresh batch-1 cache into
+        the slot; idle decode steps leave drift in a free slot's states).
+        On the paged layout only a model without attention prefills here:
+        attention-only models ride ``forward_ragged``. Last stage returns
+        the final row's logits (1, 1, V)."""
+        if self.paged and any(transformer.is_attn_cache(sub)
+                              for sub in self.cache.values()):
+            raise ValueError("paged attention prefills ride forward_ragged;"
+                             " prefill_slot serves the slot-contiguous "
+                             "layout and attention-free models")
         cfg = self.cfg
         if self.first:
             x = transformer.embed(cfg, self.params, x_in, positions,
@@ -111,6 +117,10 @@ class StageWorker:
         else:
             x = x_in
         strip = tree_map(lambda a: a[:, slot:slot + 1], self.cache)
+        for sub in strip.values():
+            if not transformer.is_attn_cache(sub):
+                for arr in sub.values():
+                    arr.zero_()
         x, _ = transformer.run_blocks(cfg, self.params["blocks"], x,
                                       positions, cache=strip)
         return transformer.head(cfg, self.params, x[:, -1:]) \
@@ -134,33 +144,42 @@ class StageWorker:
                                       block_tables=block_tables)
         return transformer.head(cfg, self.params, x) if self.last else x
 
+    def _pool(self, name: str) -> dict:
+        sub = self.cache[name]
+        if "k_pages" not in sub:
+            raise ValueError(f"{name} holds no attention page pool")
+        return sub
+
     def copy_pages(self, src: int, dst: int):
-        """Copy page ``src`` onto page ``dst`` in every pool leaf (all
-        periods), in place — the engine's copy-on-write when a prefix-cache
-        hit covers a whole prompt and the final token must be recomputed
-        into a private block."""
+        """Copy page ``src`` onto page ``dst`` in every attention pool leaf
+        (all periods), in place — the engine's copy-on-write when a
+        prefix-cache hit covers a whole prompt and the final token must be
+        recomputed into a private block. Recurrent states are slot-indexed
+        and not touched."""
         if self.tracer is not None:
             self.tracer.on_copy_pages(src, dst, self.stage)
         for sub in self.cache.values():
-            for arr in sub.values():
-                arr[:, dst] = arr[:, src]
+            if "k_pages" in sub:
+                for arr in sub.values():
+                    arr[:, dst] = arr[:, src]
 
     def read_page(self, name: str, blk: int):
         """Host copies (CPU tensors) of one attention pool's page ``blk``,
         every leaf: {"k_pages": (P_stage, page_size, Hkv, hd), "v_pages":
         ..., plus scale/zero leaves (P_stage, page_size, Hkv) for int8
         pools}."""
+        sub = self._pool(name)
         if self.tracer is not None:
             self.tracer.on_page_read(name, blk, self.stage)
         return {leaf: arr[:, blk].to("cpu", copy=True)
-                for leaf, arr in self.cache[name].items()}
+                for leaf, arr in sub.items()}
 
     def write_page(self, name: str, blk: int, k, v, extras=None):
         """Write one page's K/V (and, for int8 pools, the scale/zero
         ``extras`` dict) back into an attention pool, in place."""
+        sub = self._pool(name)
         if self.tracer is not None:
             self.tracer.on_page_write(name, blk, self.stage)
-        sub = self.cache[name]
         for leaf, val in (("k_pages", k), ("v_pages", v),
                           *(extras or {}).items()):
             sub[leaf][:, blk] = torch.as_tensor(val).to(sub[leaf].device,
@@ -168,7 +187,7 @@ class StageWorker:
 
     def clear_slot(self, slot: int):
         """Zero a vacated slot's strips of every non-paged cache leaf, in
-        place (the reference zeroes every leaf but the page pools: its
+        place (the reference zeroes every leaf but the page pools: the
         recurrent states and, here, the slot-contiguous K/V). Paged pools
         need no clear: they are unreachable once the table row is freed."""
         for sub in self.cache.values():

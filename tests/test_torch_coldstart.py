@@ -7,6 +7,8 @@ analytic cross-check and the ``ServerlessFrontend`` quickstart path
 Exactness, not tolerance, wherever both sides compute the same thing:
 manifests, chunk bytes and stage byte counts are equal; the simulated
 cold-start timelines are equal to 1e-9 s; greedy token streams are equal.
+The quickstart runs twice: on granite-3-8b and on rwkv6-1.6b, whose
+recurrent states ride the cold start, the stage loads and consolidation.
 The loader's spans against the analytic ``worker_timeline`` are held
 within the reference's 5% (``validate.DEFAULT_TOL``)."""
 
@@ -50,10 +52,9 @@ SPAN_TOL = 1e-9
 PROMPT = [11, 42, 7, 13, 5]
 
 
-def _cfgs(n_layers=4, dtype="float32"):
-    jcfg = dataclasses.replace(smoke("granite-3-8b"), n_layers=n_layers,
-                               dtype=dtype)
-    tcfg = dataclasses.replace(smoke_variant(get_config("granite-3-8b")),
+def _cfgs(n_layers=4, dtype="float32", arch="granite-3-8b"):
+    jcfg = dataclasses.replace(smoke(arch), n_layers=n_layers, dtype=dtype)
+    tcfg = dataclasses.replace(smoke_variant(get_config(arch)),
                                n_layers=n_layers, dtype=dtype)
     return jcfg, tcfg
 
@@ -216,18 +217,21 @@ def _servers(S, gbps, gb, n=4):
             for i in range(n)}
 
 
-def _quickstart(side, params, *, store_dir=None, cold=False):
+def _quickstart(side, params, *, store_dir=None, cold=False,
+                cfgs=None):
     """``examples/quickstart.py`` on one side, ``paged=False`` passed
     explicitly: Alg. 1 cold start to 2 stages, 5 steps, consolidation
-    through ``full_params``, run to the end."""
+    through ``full_params``, run to the end. ``cfgs`` is the (JAX, port)
+    pair of configs (default: 4-layer granite)."""
+    cfgs = cfgs or _cfgs()
     if side == "jax":
-        cfg = _cfgs()[0]
+        cfg = cfgs[0]
         front = JFrontend(_servers(JServer, JGbps, JGB))
         prof = JProfile(cfg.name, int(12.5 * JGB), JTimings(),
                         JSLO(ttft=7.5, tpot=0.2))
         sp = JSP
     else:
-        cfg = _cfgs()[1]
+        cfg = cfgs[1]
         front = ServerlessFrontend(_servers(ServerSpec, Gbps, GB),
                                    device="cpu")
         prof = ModelProfile(cfg.name, int(12.5 * GB), TimingProfile(),
@@ -283,6 +287,69 @@ def test_quickstart_tokens_equal_reference_across_consolidation(
     assert j["ep"].last_migration_bytes is None
     assert t["ep"].last_migration_flow is None
     assert not t["ep"].paged
+
+
+# ============================================ the quickstart on rwkv6-1.6b
+@pytest.fixture(scope="module")
+def rwkv_quickstarts():
+    """The rwkv smoke variant (2 layers, float32), the same weights on both
+    sides, through each side's quickstart."""
+    cfgs = _cfgs(n_layers=2, arch="rwkv6-1.6b")
+    jparams = jax_model(cfgs[0]).init(jax.random.PRNGKey(0))
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
+    return (cfgs, jparams, tparams,
+            _quickstart("jax", jparams, cfgs=cfgs),
+            _quickstart("port", tparams, cfgs=cfgs))
+
+
+def test_rwkv_quickstart_equals_reference(rwkv_quickstarts):
+    """The frontend, the store and the loader are generic over the param
+    tree: Alg. 1's scheme, the simulated timeline (to 1e-9 s) and the
+    streams across consolidation equal the reference's."""
+    _, _, _, j, t = rwkv_quickstarts
+    assert dataclasses.asdict(t["ep"].scheme) == \
+        dataclasses.asdict(j["ep"].scheme)
+    assert t["ep"].cold_start_timeline.s == 2
+    _assert_spans_close(t["ep"].cold_start_timeline.to_json(),
+                        j["ep"].cold_start_timeline.to_json())
+    _assert_spans_close(t["front"].last_full_fetch.to_json(),
+                        j["front"].last_full_fetch.to_json())
+    assert t["before"] == j["before"] and len(t["before"]) == 6
+    assert list(t["req"].generated) == list(j["req"].generated)
+    assert len(t["req"].generated) == 12
+    assert t["ep"].n_stages == 1 and not t["ep"].paged
+    assert t["ep"].last_migration_bytes is None
+    assert "wkv" in t["ep"].engine.workers[0].cache["slot00"]
+
+
+def test_rwkv_stores_cross_load_both_ways(rwkv_quickstarts, tmp_path):
+    """Each package's store of the rwkv weights: equal manifests and chunk
+    bytes, each read back by the other package, and a cold deploy from the
+    other package's store serves the same stream."""
+    cfgs, jparams, tparams, j, t = rwkv_quickstarts
+    jcfg, tcfg = cfgs
+    save_model(str(tmp_path / "port"), Model(tcfg), tparams)
+    jax_save(str(tmp_path / "jax"), jax_model(jcfg), jparams)
+    assert load_manifest(str(tmp_path / "port")).to_json() == \
+        load_manifest(str(tmp_path / "jax")).to_json()
+    jstore = JStore.open(str(tmp_path / "port"))
+    want = {tuple(str(getattr(p, "key", p)) for p in path): np.asarray(leaf)
+            for path, leaf in jax.tree_util.tree_flatten_with_path(
+                jparams)[0]}
+    for c in jstore.manifest.chunks:
+        assert jstore.read_range(c, 0, c.nbytes).tobytes() == \
+            want[c.path].tobytes(), c.key
+    tstore = ModelStore.open(str(tmp_path / "jax"))
+    loader = StreamedStageLoader(tstore, FetchSchedule.single(16 * Gbps),
+                                 device="cpu")
+    full, _ = loader.load_stage(1, 0)
+    _assert_trees_equal(full, tparams)
+    port = _quickstart("port", None, store_dir=str(tmp_path / "jax"),
+                       cold=True, cfgs=cfgs)
+    jax_side = _quickstart("jax", None, store_dir=str(tmp_path / "port"),
+                           cold=True, cfgs=cfgs)
+    assert list(port["req"].generated) == list(j["req"].generated) == \
+        list(jax_side["req"].generated) == list(t["req"].generated)
 
 
 # =================================================== stores cross-loaded

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card, held against their plain PyTorch
 versions (``repro_torch.kernels.ref``) on the same inputs: the paged
-kernels (ragged, paged decode) and the slot-contiguous ones (flash,
-decode), and both engines' layouts against the CPU. Every test needs
+kernels (ragged, paged decode), the slot-contiguous ones (flash, decode)
+and the WKV6 recurrence, and the engines (both layouts, granite and rwkv)
+against the CPU. Every test needs
 a CUDA card (marker ``cuda``) and skips without one. The file imports
 neither JAX nor the reference package, so it runs where only the port's
 dependencies are installed:
@@ -16,7 +17,8 @@ Tolerances: float32 atol = rtol = 1e-5 with TF32 off (both sides sum the
 same float32 terms in another order); a bf16 output row (token, head)
 within 2^-7 of its largest |value| plus 1e-4 (one bf16 rounding moves a
 value by at most 2^-8 of it; the rest is float32 order). Pad rows must be
-exactly 0.
+exactly 0. A WKV6 state from bf16 inputs is float32 arithmetic on the same
+rounded values: rtol 1e-4 (sums over T steps in another order).
 """
 
 import numpy as np
@@ -24,7 +26,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import (decode_attention, flash_attention, ops,
-                                 ragged_attention)
+                                 ragged_attention, wkv6)
 from repro_torch.kernels import ref
 from repro_torch.kernels.ragged_attention import TILE_Q
 
@@ -377,4 +379,122 @@ def test_cuda_contiguous_engine_matches_cpu(cuda):
     counts = ops.launch_counts()
     assert counts["flash_attention"] > 0 and counts["decode_attention"] > 0
     assert counts["ragged_paged_attention"] == 0
+    assert streams[0] == streams[1]
+
+
+# ---------------------------------------------------------------------------
+# the WKV6 recurrence (rwkv's time mix)
+# ---------------------------------------------------------------------------
+
+STATE_TOL = dict(atol=1e-5, rtol=1e-4)
+
+
+def _wkv(b, t, h, hd, seed=0):
+    """float32 r, k, v, w (B,T,H,hd), u (H,hd) and a state (B,H,hd,hd)."""
+    rng = np.random.RandomState(seed)
+    r, k, v, w = (torch.from_numpy(rng.randn(b, t, h, hd).astype(np.float32)
+                                   * 0.5) for _ in range(4))
+    u = torch.from_numpy(rng.randn(h, hd).astype(np.float32) * 0.5)
+    s0 = torch.from_numpy(rng.randn(b, h, hd, hd).astype(np.float32) * 0.1)
+    return r, k, v, w, u, s0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("state", [False, True], ids=["zero", "given"])
+@pytest.mark.parametrize("t", [1, 33, 100, 412])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("hd", [16, 32, 64])
+def test_cuda_wkv6_matches_plain(cuda, hd, dtype, t, state):
+    """r/k/v in float32 or bf16 with float32 w and u, T below, at and past
+    the kernel's 16-step staging, with and without an initial state."""
+    r, k, v, w, u, s0 = _wkv(2, t, 2, hd, seed=t + hd)
+    dt = DTYPES[dtype]
+    r, k, v = (x.to(dt) for x in (r, k, v))
+    s0 = s0 if state else None
+    want_y, want_s = ref.wkv6_reference(r.float(), k.float(), v.float(), w,
+                                        u, s0)
+    args = [None if x is None else x.to(cuda) for x in (r, k, v, w, u, s0)]
+    y, s_t = ops.wkv6(*args)
+    torch.cuda.synchronize()
+    _check(y.cpu(), want_y, dt)
+    torch.testing.assert_close(s_t.cpu(), want_s,
+                               **(F32_TOL if dt == torch.float32
+                                  else STATE_TOL))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w_dtype", ["f32", "bf16"])
+def test_cuda_wkv6_full_width_head_and_decay_dtypes(cuda, w_dtype):
+    """hd 128 (the kernel's widest) and w in r's own dtype."""
+    r, k, v, w, u, s0 = _wkv(1, 40, 2, 128, seed=9)
+    r, k, v = (x.to(torch.bfloat16) for x in (r, k, v))
+    w = w.to(DTYPES[w_dtype])
+    want_y, want_s = ref.wkv6_reference(r.float(), k.float(), v.float(),
+                                        w.float(), u, s0)
+    y, s_t = wkv6.wkv6(*(x.to(cuda) for x in (r, k, v, w, u, s0)))
+    _check(y.cpu(), want_y, torch.bfloat16)
+    torch.testing.assert_close(s_t.cpu(), want_s, **STATE_TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_wkv6_state_in_place_and_padded_steps(cuda):
+    """The final state written over the initial one (a cache view updated
+    in place) equals a fresh output; steps with w = -1e9 and k = 0 leave
+    the state bit for bit as it was."""
+    r, k, v, w, u, s0 = (x.to(cuda) for x in _wkv(4, 1, 3, 64, seed=2))
+    y_new, s_new = wkv6.wkv6(r, k, v, w, u, s0)
+    s = s0.clone()
+    y, out = wkv6.wkv6(r, k, v, w, u, s, out_state=s)
+    torch.cuda.synchronize()
+    assert out is s
+    assert torch.equal(y, y_new) and torch.equal(s, s_new)
+    r, k, v, w, u, s0 = (x.to(cuda) for x in _wkv(2, 21, 2, 32, seed=4))
+    _, s_t = wkv6.wkv6(r, torch.zeros_like(k), v, torch.full_like(w, -1e9),
+                       u, s0)
+    torch.cuda.synchronize()
+    assert torch.equal(s_t, s0)
+
+
+@pytest.mark.cuda
+def test_cuda_wkv6_wrapper_refuses(cuda):
+    r, k, v, w, u, s0 = (x.to(cuda) for x in _wkv(1, 5, 2, 16))
+    with pytest.raises(ValueError, match="w dtype"):
+        wkv6.wkv6(r.bfloat16(), k.bfloat16(), v.bfloat16(), w.half(), u)
+    with pytest.raises(ValueError, match="u must be"):
+        wkv6.wkv6(r, k, v, w, u.bfloat16())
+    with pytest.raises(ValueError, match="head_dim"):
+        wkv6.wkv6(*(x[..., :8].contiguous() for x in (r, k, v, w)),
+                  u[:, :8].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        wkv6.wkv6(r.transpose(1, 2), k, v, w, u)
+    big = torch.zeros(2 * 16 * 16 + 8, device=cuda)
+    with pytest.raises(ValueError, match="overlaps"):
+        wkv6.wkv6(r, k, v, w, u, big[:512].view(1, 2, 16, 16),
+                  out_state=big[8:].view(1, 2, 16, 16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])
+def test_cuda_rwkv_engine_matches_cpu(cuda, paged):
+    """The rwkv smoke model served on the card (WKV6 kernel) against the
+    same engine on the CPU (plain version): equal greedy tokens, with slots
+    reused, on either layout; only the WKV6 kernel launched."""
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.models.model import Model
+    from repro_torch.serving.api import SamplingParams
+    from repro_torch.serving.engine import Engine
+    cfg = smoke_variant(get_config("rwkv6-1.6b"))
+    params = Model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    prompts = [[1, 2, 3, 4, 5, 6, 7], [9, 8, 7, 6, 5], [3, 1, 4, 1, 5]]
+    streams = []
+    for dev in ("cpu", "cuda"):
+        eng = Engine(cfg, [_tree_to(params, dev)], max_batch=2, max_seq=32,
+                     paged=paged, device=dev)
+        reqs = [eng.submit(p, SamplingParams(max_new=5)) for p in prompts]
+        ops.reset_launch_counts()
+        eng.run()
+        streams.append([list(r.generated) for r in reqs])
+    counts = ops.launch_counts()
+    assert counts["wkv6"] > 0
+    assert sum(counts.values()) == counts["wkv6"]
     assert streams[0] == streams[1]

@@ -3,7 +3,9 @@ CPU, on the same converted weights: greedy token streams must be equal
 (exactly) for the paged step, the fused ragged step, fused int8 KV pages,
 the prefix cache with chunked prefill, preemption under the priority
 policy, and a 2-stage ServingEndpoint consolidated mid-stream, whose
-``last_migration_bytes`` must also be equal. Seeded sampled streams are
+``last_migration_bytes`` must also be equal; and for rwkv6-1.6b (the WKV6
+recurrence, slot-indexed recurrent states) on both layouts, consolidated
+and with slots reused after idle decode steps. Seeded sampled streams are
 held within the port (its sampler cannot reproduce ``jax.random``): the
 same across 1 vs 2 stages and across consolidation."""
 
@@ -321,3 +323,89 @@ def test_contiguous_refuses_paged_only_options(granite):
             Engine(tcfg, [tparams], **CKW, device="cpu", **kw)
     assert Engine(tcfg, [tparams], max_seq=32, device="cpu").paged, \
         "the port's paged=None is the paged layout"
+
+
+# ---------------------------------------------------------------------------
+# rwkv6-1.6b: recurrent states through worker, runner, engine, migration
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def rwkv():
+    jcfg = smoke("rwkv6-1.6b")
+    jparams = jax_model(jcfg).init(jax.random.PRNGKey(0))
+    tcfg = smoke_variant(get_config("rwkv6-1.6b"))
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
+    return jcfg, jparams, tcfg, tparams
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])
+def test_rwkv_two_stage_consolidated_equals_reference(rwkv, paged):
+    """A 2-stage endpoint consolidated after 3 steps, then run to the end:
+    streams equal the reference's, and so do the migrated bytes (the
+    reference counts only page-pool bytes: 0 on the paged layout of an
+    attention-free model, None on the contiguous one)."""
+    jcfg, jparams, tcfg, tparams = rwkv
+    jm, tm = jax_model(jcfg), Model(tcfg)
+    kw = dict(KW, paged=paged)
+    jep = JEndpoint(JEngine(jcfg, [jm.slice_stage_params(jparams, 2, i)
+                                   for i in range(2)], **kw))
+    tep = ServingEndpoint(Engine(tcfg, [tm.slice_stage_params(tparams, 2, i)
+                                        for i in range(2)], **kw,
+                                 device="cpu"))
+    jr = [jep.submit(p, JSP(max_new=6)) for p in PROMPTS]
+    tr = [tep.submit(p, SamplingParams(max_new=6)) for p in PROMPTS]
+    for _ in range(3):
+        jep.step()
+        tep.step()
+    jep.consolidate(jparams)
+    tep.consolidate(tparams)
+    assert tep.n_stages == 1 and tep.paged == paged
+    assert tep.last_migration_bytes == jep.last_migration_bytes
+    assert tep.last_migration_bytes == (0 if paged else None)
+    assert tep.engine.workers[0].cache["slot00"]["wkv"].shape[0] == \
+        tcfg.n_periods
+    jep.run()
+    tep.run()
+    got = [list(r.generated) for r in tr]
+    assert got == [list(r.generated) for r in jr]
+    assert all(len(g) == 6 for g in got)
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])
+def test_rwkv_slots_reused_after_idle_decode_equal_reference(rwkv, paged):
+    """Two requests decode while a third slot idles (its states drift under
+    the idle rows of every decode step); more requests than slots then
+    arrive and reuse slots as they free. Streams equal the reference's,
+    whose prefills start from a fresh cache."""
+    jcfg, jparams, tcfg, tparams = rwkv
+    prompts = PROMPTS + [[7, 7, 2], [5, 4, 3, 2, 1, 9]]
+    runs = []
+    for E, SP, cfg, p, extra in ((JEngine, JSP, jcfg, jparams, {}),
+                                 (Engine, SamplingParams, tcfg, tparams,
+                                  {"device": "cpu"})):
+        eng = E(cfg, [p], max_batch=3, max_seq=64, block_size=8,
+                paged=paged, **extra)
+        reqs = [eng.submit(q, SP(max_new=4 + i))
+                for i, q in enumerate(prompts[:2])]
+        for _ in range(4):
+            eng.step()
+        reqs += [eng.submit(q, SP(max_new=3 + i % 3))
+                 for i, q in enumerate(prompts[2:])]
+        eng.run()
+        runs.append([list(r.generated) for r in reqs])
+    assert runs[0] == runs[1]
+
+
+def test_rwkv_refuses_attention_only_options(rwkv):
+    """The reference's refusals: a recurrent state is neither
+    block-shareable (prefix cache, chunked prefill) nor on one token axis
+    (the fused ragged step, which int8 pages need)."""
+    jcfg, jparams, tcfg, tparams = rwkv
+    for kw in ({"prefix_cache": True}, {"prefill_chunk": 4},
+               {"fused": True}, {"kv_dtype": "int8"}):
+        with pytest.raises(ValueError):
+            JEngine(jcfg, [jparams], **KW, **kw)
+        with pytest.raises(ValueError,
+                           match="attention-only|recurrent|fused"):
+            Engine(tcfg, [tparams], **KW, device="cpu", **kw)

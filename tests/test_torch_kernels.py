@@ -5,9 +5,13 @@ The plain PyTorch versions of the CUDA kernels (``repro_torch.kernels
 and the Pallas kernel bodies run in interpret mode: the paged kernels over
 GQA group 1/2/4, page size 4/16, and mixed ragged batches of prefill chunks
 with history, decode rows and pad rows; flash attention causal and not,
-with ``q_offset`` and Sq != Sk; contiguous decode at kv_len 0, 1 and S.
-Tolerance: atol = rtol = 1e-5 in float32 (both sides sum the same float32
-terms in another order). Pad rows and empty rows are exactly 0 and int8
+with ``q_offset`` and Sq != Sk; contiguous decode at kv_len 0, 1 and S;
+the WKV6 recurrence over T below, at and not a multiple of the chunk, with
+and without an initial state. Tolerance: atol = rtol = 1e-5 in float32
+(both sides sum the same float32 terms in another order); a bf16 WKV6
+output row within 2^-7 of its largest |value| plus 1e-4 (the two sides
+round their float32 sums to bf16 apart). Pad rows and empty rows are
+exactly 0, padded WKV6 steps leave the state exactly as it was, and int8
 quantization matches byte for byte.
 
 The CUDA kernels themselves run only on the card: ``test_torch_cuda.py``
@@ -211,12 +215,13 @@ def test_ops_counts_only_kernel_launches():
     d = _contig([2, 5], 8, 2)
     ops.decode_attention(*map(_torch, d))
     ops.flash_attention(*map(_torch, _qkv(1, 4, 4, 2, 2)))
+    ops.wkv6(*map(_torch, _wkv(1, 5, 2, 16)))
     assert all(v == 0 for v in ops.launch_counts().values())
     assert set(ops.launch_counts()) == {"ragged_paged_attention",
                                         "ragged_paged_attention_q8",
                                         "paged_decode_attention",
                                         "flash_attention",
-                                        "decode_attention"}
+                                        "decode_attention", "wkv6"}
 
 
 # ---------------------------------------------------------------------------
@@ -306,3 +311,101 @@ def test_decode_plain_ignores_rows_past_kv_len():
         v[b, n:] = -1e4
     got = ops.decode_attention(*map(_torch, (q, k, v, kl))).numpy()
     np.testing.assert_array_equal(got, ref_out)
+
+
+# ---------------------------------------------------------------------------
+# the WKV6 recurrence's plain versions (rwkv's time mix)
+# ---------------------------------------------------------------------------
+
+from repro.kernels.wkv6 import wkv6 as j_wkv6  # noqa: E402
+
+ROW_REL, ROW_ATOL = 2.0 ** -7, 1e-4
+
+
+def _wkv(b, t, h, n, seed=0, state=True):
+    """r, k, v, w (B,T,H,hd) and u (H,hd) at the scales of the reference's
+    ``tests/test_kernels.py``, and an initial state (B,H,hd,hd) or None."""
+    rng = np.random.RandomState(seed)
+    r, k, v, w = (rng.randn(b, t, h, n).astype(np.float32) * 0.5
+                  for _ in range(4))
+    u = rng.randn(h, n).astype(np.float32) * 0.5
+    s0 = (rng.randn(b, h, n, n).astype(np.float32) * 0.1 if state
+          else None)
+    return r, k, v, w, u, s0
+
+
+def _np(x):
+    return np.asarray(x, np.float32)
+
+
+def _t(a):
+    return None if a is None else _torch(a)
+
+
+@pytest.mark.parametrize("b,t,h,n,chunk,state", [
+    (2, 64, 2, 32, 16, True),
+    (1, 100, 4, 64, 32, True),       # T not a multiple of the chunk
+    (2, 33, 1, 16, 8, True),
+    (1, 16, 2, 64, 64, True),        # T < chunk
+    (2, 45, 2, 16, 16, False),       # no initial state
+])
+def test_wkv6_plain_matches_jax_and_pallas(b, t, h, n, chunk, state):
+    args = _wkv(b, t, h, n, seed=t, state=state)
+    jargs = [None if a is None else jnp.asarray(a) for a in args]
+    want = [jref.wkv6_reference(*jargs),
+            j_wkv6(*jargs, chunk=chunk, interpret=True)]
+    got = [tref.wkv6_reference(*map(_t, args)),
+           ops.wkv6(*map(_t, args), chunk=chunk)]
+    for y, s in got:
+        assert y.dtype == torch.float32 and s.dtype == torch.float32
+        for wy, ws in want:
+            np.testing.assert_allclose(y.numpy(), _np(wy), **TOL)
+            np.testing.assert_allclose(s.numpy(), _np(ws), **TOL)
+
+
+def test_wkv6_bf16_rkv_with_f32_decay_matches_jax():
+    """rwkv's own mix of dtypes: bf16 r/k/v, float32 w and u. y comes back
+    in bf16, each (token, head) row within 2^-7 of its largest |value|
+    plus 1e-4 of JAX's; the float32 state to 1e-5."""
+    r, k, v, w, u, s0 = _wkv(2, 70, 2, 32, seed=3)
+    rkv = [torch.from_numpy(a).to(torch.bfloat16) for a in (r, k, v)]
+    jrkv = [jnp.asarray(a.float().numpy()).astype(jnp.bfloat16)
+            for a in rkv]
+    jw, ju, js = jnp.asarray(w), jnp.asarray(u), jnp.asarray(s0)
+    y, s = ops.wkv6(*rkv, _torch(w), _torch(u), _torch(s0), chunk=32)
+    assert y.dtype == torch.bfloat16 and s.dtype == torch.float32
+    for wy, ws in (jref.wkv6_reference(*jrkv, jw, ju, js),
+                   j_wkv6(*jrkv, jw, ju, js, chunk=32, interpret=True)):
+        want = _np(wy.astype(jnp.float32))
+        d = np.abs(y.float().numpy() - want).max(-1)
+        lim = ROW_REL * np.abs(want).max(-1) + ROW_ATOL
+        assert (d <= lim).all(), float((d / lim).max())
+        np.testing.assert_allclose(s.numpy(), _np(ws), **TOL)
+
+
+def test_wkv6_padded_steps_leave_the_state_unchanged():
+    """A step with w = -1e9 and k = 0 (the plain version's padding) decays
+    by exp(-exp(-1e9)) = 1 and adds nothing: the state comes back bit for
+    bit; and the chunked form over a padded T equals the unchunked one."""
+    r, k, v, w, u, s0 = map(_torch, _wkv(2, 7, 2, 16, seed=5))
+    w = torch.full_like(w, -1e9)
+    k = torch.zeros_like(k)
+    _, s = tref.wkv6_reference(r, k, v, w, u, s0)
+    assert torch.equal(s, s0)
+    args = list(map(_torch, _wkv(1, 37, 2, 16, seed=6)))
+    y1, s1 = tref.wkv6_reference(*args)
+    y2, s2 = tref.wkv6_chunked(*args, chunk=16)
+    torch.testing.assert_close(y2, y1, **TOL)
+    torch.testing.assert_close(s2, s1, **TOL)
+
+
+def test_wkv6_out_state_is_written_in_place():
+    """``out_state`` receives the final state, and may be the initial state
+    itself (the rwkv cache's ``wkv`` view updated in place)."""
+    args = list(map(_torch, _wkv(2, 9, 2, 16, seed=7)))
+    want_y, want_s = ops.wkv6(*args)
+    s = args[-1].clone()
+    y, out = ops.wkv6(*args[:-1], s, out_state=s)
+    assert out is s
+    torch.testing.assert_close(y, want_y, atol=0, rtol=0)
+    torch.testing.assert_close(s, want_s, atol=0, rtol=0)

@@ -45,11 +45,11 @@ def granite():
 
 def test_config_copy_matches_reference():
     from repro.configs import get_config as jget
-    for name in ("granite-3-8b",):
+    for name in ("granite-3-8b", "rwkv6-1.6b"):
         assert dataclasses.asdict(get_config(name)) == \
             dataclasses.asdict(jget(name))
         assert dataclasses.asdict(smoke_variant(get_config(name))) == \
-            dataclasses.asdict(smoke("granite-3-8b"))
+            dataclasses.asdict(smoke(name))
     full = get_config("granite-3-8b")
     assert (full.n_layers, full.d_model, full.n_heads, full.n_kv_heads,
             full.head_dim, full.d_ff, full.padded_vocab) == \
@@ -227,3 +227,118 @@ def test_contiguous_worker_prefills_its_slot_and_clears_it(granite):
     with pytest.raises(ValueError, match="paged layout"):
         StageWorker(tcfg, tparams, 1, 0, 3, 16, paged=False,
                     kv_dtype="int8", device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# rwkv6-1.6b: the WKV6 time mix and its recurrent caches
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def rwkv():
+    """The smoke variant (2 layers, d 64, 4 heads of 16, float32) on the
+    JAX init's weights."""
+    jcfg = smoke("rwkv6-1.6b")
+    jparams = jax_model(jcfg).init(jax.random.PRNGKey(0))
+    tcfg = smoke_variant(get_config("rwkv6-1.6b"))
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
+    return jcfg, jparams, tcfg, tparams
+
+
+def test_rwkv_defs_and_stage_accounting_match_reference(rwkv):
+    jcfg, _, tcfg, _ = rwkv
+    jm, tm = jax_model(jcfg), Model(tcfg)
+    jdefs = _flat(jax.tree.map(lambda d: d, jm.defs,
+                               is_leaf=lambda x: hasattr(x, "axes")))
+    assert {k: (d.shape, d.init) for k, d in jdefs.items()} == \
+        {k: (d.shape, d.init) for k, d in _flat(tm.defs).items()}
+    assert tm.bytes() == jm.bytes()
+    for i in range(2):
+        assert tm.stage_bytes(2, i) == jm.stage_bytes(2, i)
+    full = get_config("rwkv6-1.6b")
+    assert (full.n_layers, full.d_model, full.n_heads, full.head_dim,
+            full.d_ff, full.padded_vocab) == (24, 2048, 32, 64, 7168, 65536)
+
+
+def test_rwkv_prefill_and_decode_match_reference(rwkv):
+    """``Model.prefill(paged=False)`` and three ``decode_step``s against the
+    reference's: logits to atol 1e-4, the recurrent ``shift``/``wkv``
+    caches to 1e-5 (float32, sums in another order)."""
+    jcfg, jparams, tcfg, tparams = rwkv
+    jm, tm = jax_model(jcfg), Model(tcfg)
+    toks = np.random.RandomState(0).randint(0, tcfg.vocab, (2, 11)).astype(
+        np.int32)
+    jl, jc = jm.prefill(jparams, {"tokens": jnp.asarray(toks)}, 32)
+    tl, tc = tm.prefill(tparams, torch.from_numpy(toks), 32, paged=False)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4)
+    for step in range(3):
+        for name in jc:
+            assert set(tc[name]) == set(jc[name]) == {"shift", "wkv"}
+            for leaf in ("shift", "wkv"):
+                np.testing.assert_allclose(tc[name][leaf].numpy(),
+                                           np.asarray(jc[name][leaf]),
+                                           atol=1e-5)
+        tok = np.asarray(jnp.argmax(jl, -1))[:, None].astype(np.int32)
+        pos = np.full((2, 1), 11 + step, np.int32)
+        jl, jc = jm.decode_step(jparams, jc, jnp.asarray(tok),
+                                jnp.asarray(pos))
+        tl, tc = tm.decode_step(tparams, tc, torch.from_numpy(tok),
+                                torch.from_numpy(pos))
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4)
+
+
+def test_rwkv_prefill_then_decode_equals_the_full_forward(rwkv):
+    """Prefill of S tokens then one decode step gives the logits of the
+    full forward over S + 1 tokens at its last position
+    (``tests/test_consistency.py``): the recurrent caches carry exactly the
+    state the next token needs."""
+    from repro_torch.models import transformer
+    _, _, tcfg, tparams = rwkv
+    m = Model(tcfg)
+    toks = torch.from_numpy(np.random.RandomState(1).randint(
+        0, tcfg.vocab, (2, 11)).astype(np.int32))
+    pos = torch.arange(11, dtype=torch.int32)[None].expand(2, 11)
+    x = transformer.embed(tcfg, tparams, toks, pos, dtype=m.dtype)
+    x, _ = transformer.run_blocks(tcfg, tparams["blocks"], x, pos)
+    full = transformer.head(tcfg, tparams, x)[:, -1]
+    _, cache = m.prefill(tparams, toks[:, :10], 16, paged=False)
+    dec, _ = m.decode_step(tparams, cache, toks[:, 10:],
+                           torch.full((2, 1), 10, dtype=torch.int32))
+    torch.testing.assert_close(dec, full, atol=1e-4, rtol=1e-4)
+
+
+def test_rwkv_paged_prefill_is_refused(rwkv):
+    """The ragged route is attention-only (the reference's
+    ``serving/runner.py`` sends a recurrent model elsewhere)."""
+    _, _, tcfg, tparams = rwkv
+    with pytest.raises(ValueError, match="attention-only"):
+        Model(tcfg).prefill(tparams, torch.tensor([[1, 2, 3]]), 16)
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_rwkv_worker_prefill_starts_the_slot_from_zero(rwkv, paged):
+    """A slot's recurrent states drift under idle decode steps; a prefill
+    into it must start from zero, as the reference's fresh batch-1 cache
+    does: the logits and the states equal those of a fresh worker, and the
+    other slots keep theirs."""
+    from repro_torch.serving.worker import StageWorker
+    _, _, tcfg, tparams = rwkv
+    kw = dict(paged=paged, n_pages=9 if paged else None,
+              page_size=8 if paged else None, device="cpu")
+    fresh = StageWorker(tcfg, tparams, 1, 0, 3, 32, **kw)
+    stale = StageWorker(tcfg, tparams, 1, 0, 3, 32, **kw)
+    for leaf in stale.cache["slot00"].values():
+        leaf.normal_(generator=torch.Generator().manual_seed(0))
+    other = {k: v[:, 2].clone() for k, v in stale.cache["slot00"].items()}
+    toks = torch.tensor([[5, 6, 7, 8]], dtype=torch.int32)
+    pos = torch.arange(4, dtype=torch.int32)[None]
+    want = fresh.prefill_slot(toks, 1, pos)
+    got = stale.prefill_slot(toks, 1, pos)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    for k, v in stale.cache["slot00"].items():
+        torch.testing.assert_close(v[:, 1], fresh.cache["slot00"][k][:, 1],
+                                   atol=0, rtol=0)
+        assert torch.equal(v[:, 2], other[k])
+    stale.clear_slot(1)
+    assert not any(bool(v[:, 1].any())
+                   for v in stale.cache["slot00"].values())

@@ -117,7 +117,7 @@ def test_cpu_kernel_wrappers_refuse_cpu_tensors():
     """The CUDA wrappers take CUDA tensors only: the plain version is
     reached through ops' dispatch on a CPU tensor, never by a fallback."""
     from repro_torch.kernels import (decode_attention, flash_attention,
-                                     ragged_attention)
+                                     ragged_attention, wkv6)
 
     q = torch.zeros(8, 4, 16)
     pages = torch.zeros(3, 4, 2, 16)
@@ -136,6 +136,9 @@ def test_cpu_kernel_wrappers_refuse_cpu_tensors():
                                           torch.ones(1, dtype=torch.int32))
     with pytest.raises(ValueError, match="CUDA tensor"):
         flash_attention.flash_attention(q[None], cache, cache)
+    x = torch.zeros(1, 3, 2, 16)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        wkv6.wkv6(x, x, x, x, torch.zeros(2, 16))
 
 
 def test_not_ported_options_raise():
@@ -148,3 +151,9 @@ def test_not_ported_options_raise():
                {"sanitize": True}):
         with pytest.raises(NotImplementedError):
             Engine(cfg, [params], device="cpu", **kw)
+    # mamba, MoE and enc-dec are refused; attention and rwkv are served
+    import dataclasses
+    for kw in ({"mixer_pattern": ("rwkv", "mamba")},
+               {"mlp_pattern": ("moe",)}, {"encoder_layers": 2}):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            Model(dataclasses.replace(cfg, **kw)).defs
