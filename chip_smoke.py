@@ -5,6 +5,8 @@ NVIDIA H100.
     python3 chip_smoke.py            # build, kernel checks, full-width serve
                                      # and cold start
     python3 chip_smoke.py --quick    # build and kernel checks only
+    python3 chip_smoke.py --prefill-profile   # build, then the prefill
+                                     # profile of phase 3 alone
 
 Run from the root of a checkout. Phases:
 
@@ -14,8 +16,10 @@ Run from the root of a checkout. Phases:
 2. kernels: each CUDA kernel at the main path's shapes (Hq 32, Hkv 8,
    hd 128, page 16) against its plain PyTorch version in float32 on the
    same inputs: the ragged kernel on a mixed batch (two prefill chunks with
-   history, four decode rows, pad tiles) with bf16, fp16 and int8 pages,
-   the paged decode kernel at batch 4 with kv_len up to 1,024, flash
+   history, four decode rows, pad tiles) with bf16, fp16 and int8 pages
+   and at a fused decode-only step (the four decode rows alone, bf16 and
+   int8 pages; printed as ``RAGGED_DECODE``), the paged decode kernel at
+   batch 4 with kv_len up to 1,024, flash
    attention at batch 1, causal, Sq = Sk = 300 and 412, and the contiguous
    decode kernel at batch 4, S 1,024, kv_len 1,024/777/300/1 (and a
    kv_len 0 row, exactly 0), and the WKV6 recurrence at rwkv6-1.6b's
@@ -43,7 +47,12 @@ Run from the root of a checkout. Phases:
    the int8 kernel's logits must stray from its plain version's no more
    than twice as far as the bf16 kernel's from its own. In the 1-stage and int8 runs, four
    decode steps run under ``torch.profiler`` (device time per step, the
-   kernels that take it) and are left out of the step timings.
+   kernels that take it) and are left out of the step timings. Every
+   ragged launch of the main and int8 paths must have taken the
+   tensor-core body (``ops.body_counts``). Last, one forward of the
+   412-token prompt through ``Model.prefill`` on each layout (flash;
+   ragged over bf16 and over int8 pages) under ``torch.profiler``: the
+   forward's device ms and the attention kernel's share (``PREFILL``).
 4. cold start, the main path of the slot-contiguous layout: a
    ``ServerlessFrontend`` over 4 servers deploys full-width, full-depth
    granite-3-8b (random bf16 weights from a seeded generator) into the
@@ -51,7 +60,8 @@ Run from the root of a checkout. Phases:
    out of the store, ``paged=False``), serves the same 4 requests and
    consolidates through ``full_params`` after 4 tokens. Its streams must
    equal a 1-stage contiguous engine's on the same weights; its launches
-   must show flash and contiguous decode > 0 and both paged kernels at 0.
+   must show flash and contiguous decode > 0 and both paged kernels at 0,
+   and every flash launch on the tensor-core body.
    Printed: the Alg. 1 scheme, the cold-start timeline (simulated clock),
    the measured wall time and GB/s of each stage's ``materialize()`` and of
    ``full_params`` (host -> card), serve rates, a profiled window, and the
@@ -163,13 +173,18 @@ def bound_ms(n_bytes, flops, peak):
 # ---------------------------------------------------------------------------
 
 
-def ragged_batch(torch, hq, hkv, hd, bs, dtype, seed):
-    """A mixed ragged batch in the runner's layout: two prefill chunks with
-    history, four decode rows, one pad tile; each request's pages at
-    scattered ids. Returns (q, k, v, tables, row, pos, spans)."""
+# (history rows, new tokens) per request: the kernel phase's mixed batch
+# (two prefill chunks with history, four decode rows), and a fused decode
+# step of the same four decode rows alone
+MIXED_SPECS = [(300, 256), (100, 203), (1023, 1), (776, 1), (299, 1), (0, 1)]
+DECODE_SPECS = [(1023, 1), (776, 1), (299, 1), (0, 1)]
+
+
+def ragged_batch(torch, hq, hkv, hd, bs, dtype, seed, specs=MIXED_SPECS):
+    """A ragged batch in the runner's layout, one request per spec, then one
+    pad tile; each request's pages at scattered ids. Returns (q, k, v,
+    tables, row, pos)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    # (history rows, new tokens) per request
-    specs = [(300, 256), (100, 203), (1023, 1), (776, 1), (299, 1), (0, 1)]
     nb = max(-(-(h + n) // bs) for h, n in specs)
     n_pages = len(specs) * nb + 1                          # + trash page
     perm = torch.randperm(n_pages - 1, generator=g, device="cuda")
@@ -370,6 +385,45 @@ def kernel_phase(torch, quick):
                                               pos), reps, flush=flush),
         bound_ms=b_ms, bound_by=b_by, max_abs_err=err_q8[0],
         err_over_tol=err_q8[1])
+
+    # -- ragged at a fused decode-only step: the four decode rows alone (the
+    # shape of most of the int8 engine's launches: 4 tiles x 8 kv heads =
+    # 32 blocks), bf16 and int8 pages; printed, not in the kernels line
+    q, k32, v32, tb, row, pos = ragged_batch(torch, Hq, HKV, HD, BS,
+                                             torch.bfloat16, 5, DECODE_SPECS)
+    kq, ks, kz = ref.quantize_kv(k32)
+    vq, vs, vz = ref.quantize_kv(v32)
+    quant = {"k_scale": ks, "k_zero": kz, "v_scale": vs, "v_zero": vz}
+    kdq = ref.dequantize_kv(kq, ks, kz).to(torch.bfloat16)
+    vdq = ref.dequantize_kv(vq, vs, vz).to(torch.bfloat16)
+    decode_rows = {}
+    for label, k, v, kvq, row_bytes, lk, lv in (
+            ("bf16", k32.bfloat16(), v32.bfloat16(), None, 2 * HKV * HD * 2,
+             k32.bfloat16(), v32.bfloat16()),
+            ("int8", kq, vq, quant, 2 * HKV * (HD + 4 * 2), kdq, vdq)):
+        got = kra.ragged_paged_attention(q, k, v, tb, row, pos, kv_quant=kvq)
+        want = ref.ragged_paged_attention_reference(
+            q.float(), k if kvq else k.float(), v if kvq else v.float(), tb,
+            row, pos, kv_quant=kvq)
+        err = check_rows(f"ragged decode-only step, {label} pages", got,
+                         want)
+        if not bool((got[pos < 0] == 0).all()):
+            raise AssertionError("ragged decode-only: pad rows are not 0")
+        nbytes, flops = ragged_cost(q, row_bytes, tb, row, pos, HKV, HD)
+        b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS)
+        decode_rows[label] = dict(
+            **kernel_ms(torch, lambda: kra.ragged_paged_attention(
+                q, k, v, tb, row, pos, kv_quant=kvq), reps, flush),
+            plain_ms=time_ms(torch, lambda: ref.ragged_paged_attention_reference(
+                q, k, v, tb, row, pos, kv_quant=kvq), max(3, reps // 4), 1,
+                flush),
+            library_ms=time_ms(torch, sdpa_ragged(torch, q, lk, lv, tb, row,
+                                                  pos), reps, flush=flush),
+            bound_ms=b_ms, bound_by=b_by, max_abs_err=err[0],
+            err_over_tol=err[1])
+        log(f"  ragged decode-only step ({label} pages, kv_len "
+            f"1024/777/300/1): {decode_rows[label]}")
+    log("RAGGED_DECODE " + json.dumps(decode_rows))
 
     # -- paged decode, f32 at hd 16, TF32 off
     g = torch.Generator(device="cuda").manual_seed(3)
@@ -664,8 +718,84 @@ def profile_steps(torch, ep, n=4):
 
 
 # the __global__ functions of src/repro_torch/csrc, as the profiler names them
-PORT_KERNELS = ("ragged_kernel", "paged_decode_kernel", "flash_kernel",
-                "decode_kernel", "wkv6_kernel")
+PORT_KERNELS = ("ragged_mma_kernel", "ragged_kernel", "paged_decode_kernel",
+                "flash_mma_kernel", "flash_kernel", "decode_kernel",
+                "wkv6_kernel")
+
+
+def check_bodies(counts, label):
+    """Every launch of the two kernels with a tensor-core and a CUDA-core
+    body in ``counts`` (a path's ``launch_counts``) took the tensor-core
+    body. Returns the body counts."""
+    from repro_torch.kernels import ops
+    bodies = ops.body_counts()
+    for k in ("ragged_paged_attention", "ragged_paged_attention_q8",
+              "flash_attention"):
+        if (bodies[f"{k}/cuda_core"] != 0
+                or bodies[f"{k}/tensor_core"] != counts[k]):
+            raise AssertionError(f"{label}: {k} launched {counts[k]} times, "
+                                 f"by body {bodies}: not all on the tensor "
+                                 f"cores")
+    log(f"  bodies on {label}: {bodies}")
+    return bodies
+
+
+def prefill_profile(torch, model, params, prompt):
+    """One forward of ``prompt`` (one sequence) through ``Model.prefill``
+    under ``torch.profiler`` on each layout: ``paged=False`` (flash
+    attention) and ``paged=True`` over bf16 and over int8 pages (the ragged
+    kernel), each after one warm-up forward. Returns, per layout, the
+    forward's device ms (all kernels; one stream) and the attention
+    kernel's ms and share of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    tokens = torch.tensor([prompt], dtype=torch.int32, device="cuda")
+    flash = ("flash_mma_kernel", "flash_kernel")
+    ragged = ("ragged_mma_kernel", "ragged_kernel")
+    res = {}
+    for label, kw, names in (
+            ("contiguous (flash)", dict(paged=False), flash),
+            ("paged, bf16 pages (ragged)", dict(paged=True), ragged),
+            ("paged, int8 pages (ragged)", dict(paged=True, kv_dtype="int8"),
+             ragged)):
+        model.prefill(params, tokens, 1024, **kw)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            model.prefill(params, tokens, 1024, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kern = {e.key: e.device_time_total / 1e3 for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA}
+        total = sum(kern.values())
+        attn = sum(v for k, v in kern.items()
+                   if any(f"::{n}<" in k for n in names))
+        top = sorted(kern.items(), key=lambda kv: -kv[1])[:5]
+        res[label] = {"tokens": len(prompt), "device_ms": total,
+                      "attention_kernel_ms": attn,
+                      "attention_share": attn / total if total else None,
+                      "profiled_wall_ms": wall * 1e3,
+                      "top_kernels_ms": {k[:60]: v for k, v in top}}
+        log(f"  prefill of {len(prompt)} tokens, {label}: device "
+            f"{total:.3f} ms, attention kernel {attn:.3f} ms "
+            f"({res[label]['attention_share']:.3f} of it); profiled wall "
+            f"{wall * 1e3:.1f} ms")
+    log("PREFILL " + json.dumps(res))
+    return res
+
+
+def prefill_profile_phase(torch):
+    """``--prefill-profile``: full-depth granite-3-8b on random weights,
+    the prefill profile alone (it runs on an earlier tree too, for a before
+    and after from one card)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    cfg = get_config("granite-3-8b")
+    model = Model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    return prefill_profile(torch, model, params, main_prompts(cfg.vocab)[2])
 
 
 def divergence_witness(torch, model, params, prompts, streams, q8_streams):
@@ -818,6 +948,7 @@ def serve_phase(torch):
     for k in ("ragged_paged_attention", "paged_decode_attention"):
         if main_counts[k] <= 0:
             raise AssertionError(f"{k} never launched on the main path")
+    main_bodies = check_bodies(main_counts, "the main path")
     del ep
 
     ref_ep = ServingEndpoint(Engine(cfg, [params], **kw))
@@ -847,6 +978,7 @@ def serve_phase(torch):
     log(f"  launches on the int8 path: {q8_counts}")
     if q8_counts["ragged_paged_attention_q8"] <= 0:
         raise AssertionError("the int8 ragged body never launched")
+    q8_bodies = check_bodies(q8_counts, "the int8 path")
     if not all(len(s) == MAX_NEW for s in q8_streams):
         raise AssertionError(f"bad int8 streams {q8_streams}")
     agree = sum(a == b for s, r in zip(q8_streams, streams)
@@ -894,9 +1026,13 @@ def serve_phase(torch):
             f"{pr['device_ms_per_step']:.2f} ms a step (profiled wall "
             f"{pr['profiled_wall_ms_per_step']:.2f} ms); top kernels "
             f"{pr['top_kernels_ms_per_step']}")
+    prefill = prefill_profile(torch, model, params, prompts[2])
     log("SERVE " + json.dumps({"results": results, "kv_bytes": kv_bytes,
                                "launches_main": main_counts,
                                "launches_int8": q8_counts,
+                               "bodies_main": main_bodies,
+                               "bodies_int8": q8_bodies,
+                               "prefill_profile": prefill,
                                "int8_token_agreement": agree,
                                "int8_divergence": witness,
                                "profiles": profiles}))
@@ -1016,6 +1152,7 @@ def coldstart_phase(torch, prompts):
     for k in ("flash_attention", "decode_attention"):
         if counts[k] <= 0:
             raise AssertionError(f"{k} never launched on the cold-start path")
+    bodies = check_bodies(counts, "the cold-start path")
     for k in ("ragged_paged_attention", "ragged_paged_attention_q8",
               "paged_decode_attention"):
         if counts[k] != 0:
@@ -1081,6 +1218,7 @@ def coldstart_phase(torch, prompts):
                    "slo_ok": sch.slo_ok},
         "timeline_simulated": timeline, "deploy_s": deploy_s,
         "loads_measured": rates, "results": results, "launches": counts,
+        "bodies": bodies,
         "paged_token_agreement": agree, "layout_divergence": witness,
         "profiles": profiles}))
     return {k: counts[k] for k in ("flash_attention", "decode_attention")}
@@ -1302,6 +1440,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
                     help="build and check the kernels only")
+    ap.add_argument("--prefill-profile", action="store_true",
+                    help="build, then only profile one granite-3-8b prefill "
+                         "on each layout (no checks, no result line)")
     args = ap.parse_args()
 
     import torch
@@ -1335,6 +1476,11 @@ def main():
         spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill", text))
         log(f"  {name}: {len(regs)} kernels, at most {max(regs)} registers "
             f"a thread, {spills} bytes of spill stores and loads (ptxas)")
+
+    if args.prefill_profile:
+        log("== prefill profile (granite-3-8b, 412 tokens, full depth)")
+        prefill_profile_phase(torch)
+        return
 
     log("== kernels vs plain versions")
     rows = kernel_phase(torch, args.quick)

@@ -32,6 +32,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # dtype codes of the C entry points (csrc/paged_attention_common.cuh)
 DTYPE_CODES = {"float32": 0, "bfloat16": 1, "float16": 2, "int8": 3}
+# the body a C entry point with two bodies reports it launched, by code
+BODIES = ("cuda_core", "tensor_core")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

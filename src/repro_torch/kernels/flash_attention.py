@@ -6,8 +6,11 @@ Kernel: ``csrc/flash_attention.cu`` (replaces
 ``src/repro/kernels/flash_attention.py::flash_attention``); plain version:
 ``kernels/ref.py::mha_reference``.
 
-A block holds ``TILE_ROWS`` query rows: ``TILE_ROWS // G`` query positions
-times the GQA group G, so every group shares the block's K/V loads.
+Two bodies, chosen by dtype in the C entry point: bf16 and fp16 run on the
+tensor cores (``mma.sync``, K/V tiles by ``cp.async``; 64 query rows a
+block, a tile of positions times the GQA group G); float32 runs on the CUDA
+cores (32 rows a block, f32 FMAs), so the f32 checks hold it to 1e-5.
+``BODY_LAUNCHES`` counts each body's launches apart.
 """
 
 from __future__ import annotations
@@ -19,16 +22,18 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import softmax_scale
 
-TILE_ROWS = 32
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
-# launches, counted where the kernel is launched
+# launches, counted where the kernel is launched; and by body
 LAUNCHES = {"flash_attention": 0}
+BODY_LAUNCHES = {"flash_attention/tensor_core": 0,
+                 "flash_attention/cuda_core": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_P] * 4 + [_I] * 9 + [ctypes.c_float, _I, _P]
+_ARGTYPES = ([_P] * 4 + [_I] * 8 + [ctypes.c_float, _I, _P,
+                                    ctypes.POINTER(_I)])
 
 
 def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0):
@@ -51,13 +56,15 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0):
         raise ValueError(f"Sk={sk} must be >= 1 and q_offset={q_offset} >= 0")
     _build.check_aligned("flash_attention", k=k, v=v)
     out = torch.empty_like(q)
-    tile_q = max(1, TILE_ROWS // (hq // hkv))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     fn = _build.entry("flash_attention", _ARGTYPES)
+    body = ctypes.c_int(-1)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
-             sk, hq, hkv, hd, tile_q, int(bool(causal)), int(q_offset),
-             softmax_scale(hd), _build.dtype_code(q.dtype), stream)
+             sk, hq, hkv, hd, int(bool(causal)), int(q_offset),
+             softmax_scale(hd), _build.dtype_code(q.dtype), stream,
+             ctypes.byref(body))
     if err:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
     LAUNCHES["flash_attention"] += 1
+    BODY_LAUNCHES[f"flash_attention/{_build.BODIES[body.value]}"] += 1
     return out

@@ -6,7 +6,9 @@ kernel, which launches or raises. There is no switch that runs the plain
 version on the card.
 
 Each kernel counts its launches (``launch_counts``), so a run can show
-that its attention and its recurrences went through the kernels.
+that its attention and its recurrences went through the kernels; the two
+kernels with a tensor-core and a CUDA-core body also count each body's
+launches (``body_counts``).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import wkv6 as _wkv
 
 _COUNTS = (_ra.LAUNCHES, _da.LAUNCHES, _fa.LAUNCHES, _wkv.LAUNCHES)
+_BODY_COUNTS = (_ra.BODY_LAUNCHES, _fa.BODY_LAUNCHES)
 
 
 def _on_card(t) -> bool:
@@ -35,8 +38,14 @@ def launch_counts() -> Dict[str, int]:
     return {k: n for counts in _COUNTS for k, n in counts.items()}
 
 
+def body_counts() -> Dict[str, int]:
+    """Launches since the last ``reset_launch_counts`` by kernel and body:
+    ``"<kernel>/tensor_core"`` and ``"<kernel>/cuda_core"``."""
+    return {k: n for counts in _BODY_COUNTS for k, n in counts.items()}
+
+
 def reset_launch_counts():
-    for counts in _COUNTS:
+    for counts in _COUNTS + _BODY_COUNTS:
         for k in counts:
             counts[k] = 0
 

@@ -10,7 +10,13 @@ plain version: ``kernels/ref.py::ragged_paged_attention_reference``.
 Layout contract (the runner's): ``T`` is a multiple of ``TILE_Q`` and
 ``row`` is constant over each tile. ``TILE_Q`` is defined here only; the
 runner and ``Model.prefill`` lay their ragged batches out by it. ``kv_quant`` (int8 pages' scale/zero
-pools) selects the fused-dequant body.
+pools) selects the int8 body.
+
+Two bodies, chosen by dtype in the C entry point: a bf16 q over bf16 or
+int8 pages (GQA group G <= 8) runs on the tensor cores (``mma.sync``, pages
+gathered by ``cp.async``); float32 q or pages, fp16 pages, and G > 8 run on
+the CUDA cores (f32 FMAs), so the f32 checks hold them to 1e-5.
+``BODY_LAUNCHES`` counts each body's launches apart.
 """
 
 from __future__ import annotations
@@ -27,12 +33,16 @@ HEAD_DIMS = (16, 32, 64, 128)
 Q_DTYPES = (torch.float32, torch.bfloat16)
 PAGE_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.int8)
 
-# launches of each body, counted where the kernel is launched
+# launches of the float-page and int8-page functions, counted where the
+# kernel is launched; and of each, by the body that ran
 LAUNCHES = {"ragged_paged_attention": 0, "ragged_paged_attention_q8": 0}
+BODY_LAUNCHES = {f"{name}/{body}": 0 for name in LAUNCHES
+                 for body in ("tensor_core", "cuda_core")}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_P] * 11 + [_I] * 7 + [ctypes.c_float, _I, _I, _P]
+_ARGTYPES = ([_P] * 11 + [_I] * 7 + [ctypes.c_float, _I, _I, _P,
+                                     ctypes.POINTER(_I)])
 
 
 def ragged_paged_attention(q, k_pages, v_pages, tables, row, pos, *,
@@ -80,14 +90,16 @@ def ragged_paged_attention(q, k_pages, v_pages, tables, row, pos, *,
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     fn = _build.entry("ragged_paged_attention", _ARGTYPES)
+    body = ctypes.c_int(-1)
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), *ptrs,
              tables.data_ptr(), row.data_ptr(), pos.data_ptr(),
              out.data_ptr(), t, hq, hkv, hd, nb, bs, TILE_Q,
              softmax_scale(hd), _build.dtype_code(q.dtype),
-             _build.dtype_code(k_pages.dtype), stream)
+             _build.dtype_code(k_pages.dtype), stream, ctypes.byref(body))
     if err:
         raise RuntimeError(f"ragged_paged_attention launch failed: CUDA "
                            f"error {err}")
-    LAUNCHES["ragged_paged_attention_q8" if is_q8
-             else "ragged_paged_attention"] += 1
+    name = "ragged_paged_attention_q8" if is_q8 else "ragged_paged_attention"
+    LAUNCHES[name] += 1
+    BODY_LAUNCHES[f"{name}/{_build.BODIES[body.value]}"] += 1
     return out

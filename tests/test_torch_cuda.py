@@ -12,7 +12,10 @@ dependencies are installed:
 
 Inputs come from numpy seeds; the paged ones in the serving runner's
 ragged layout (tile-aligned spans, pad tokens at pos -1, pages at
-scattered ids).
+scattered ids). The ragged and flash kernels have two bodies each, counted
+apart (``ops.body_counts``): bf16/fp16 operands (and int8 pages under a
+bf16 q) take the tensor cores, float32 the CUDA cores; the bf16 cases
+check which ran.
 Tolerances: float32 atol = rtol = 1e-5 with TF32 off (both sides sum the
 same float32 terms in another order); a bf16 output row (token, head)
 within 2^-7 of its largest |value| plus 1e-4 (one bf16 rounding moves a
@@ -57,6 +60,19 @@ def _assert_rows_close(got, want):
     d = (got.float() - want).abs().amax(-1)
     lim = ROW_REL * want.abs().amax(-1) + ROW_ATOL
     assert bool((d <= lim).all()), float((d / lim).max())
+
+
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "fp16": torch.float16}
+
+
+def _check(got, want, dtype):
+    """f32 outputs at F32_TOL; bf16/fp16 outputs row by row against the
+    float32 plain version."""
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, **F32_TOL)
+    else:
+        assert got.dtype == dtype
+        _assert_rows_close(got, want)
 
 
 def _ragged(specs, hq, hkv, hd, bs, seed=0):
@@ -111,13 +127,37 @@ def test_cuda_ragged_f32_matches_plain(cuda, group, hd, bs):
     assert bool((got[args[5] < 0] == 0).all())
 
 
+# longer histories than MIXED: several 64-key stages, decode tiles that
+# split each stage's keys four ways, and a chunk whose tiles reach past 64
+LONG = [(130, 1), (0, 37), (70, 20), (63, 1), (64, 1), (0, 1)]
+
+
+def _bodies(name):
+    counts = ops.body_counts()
+    return counts[f"{name}/tensor_core"], counts[f"{name}/cuda_core"]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float16])
-def test_cuda_ragged_bf16_matches_plain(cuda, kv_dtype):
-    q, k, v, tb, row, pos = _to(cuda, _ragged(MIXED, 32, 8, 128, 16, seed=1))
-    q, k, v = q.bfloat16(), k.to(kv_dtype), v.to(kv_dtype)
+@pytest.mark.parametrize("kv_dtype", ["bf16", "fp16"])
+@pytest.mark.parametrize("hd,bs", [(16, 4), (32, 16), (64, 8), (128, 16)])
+@pytest.mark.parametrize("group", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("specs", [MIXED, LONG], ids=["mixed", "long"])
+def test_cuda_ragged_bf16_matches_plain(cuda, specs, group, hd, bs,
+                                        kv_dtype):
+    """A bf16 q over bf16 pages takes the tensor-core body, over fp16 pages
+    the CUDA-core one; each output row within its limit of the float32
+    plain version, pad rows exactly 0. hd 128 runs granite's 8 kv heads.
+    A full tile at group 1 or 2 splits each stage's keys four ways, at 3
+    or 4 two ways, at 8 not at all; a decode tile always four ways."""
+    hkv = 8 if hd == 128 else 2
+    q, k, v, tb, row, pos = _to(cuda, _ragged(specs, hkv * group, hkv, hd,
+                                              bs, seed=hd + group))
+    q, k, v = q.bfloat16(), k.to(DTYPES[kv_dtype]), v.to(DTYPES[kv_dtype])
+    ops.reset_launch_counts()
     got = ragged_attention.ragged_paged_attention(q, k, v, tb, row, pos)
     assert got.dtype == torch.bfloat16
+    assert _bodies("ragged_paged_attention") == (
+        (1, 0) if kv_dtype == "bf16" else (0, 1))
     want = ref.ragged_paged_attention_reference(q.float(), k.float(),
                                                 v.float(), tb, row, pos)
     _assert_rows_close(got, want)
@@ -125,20 +165,31 @@ def test_cuda_ragged_bf16_matches_plain(cuda, kv_dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd,bs,group", [(16, 4, 2), (128, 16, 4)])
-def test_cuda_ragged_int8_matches_plain(cuda, hd, bs, group):
-    q, k, v, tb, row, pos = _to(cuda, _ragged(MIXED, 2 * group, 2, hd, bs,
+@pytest.mark.parametrize("q_dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("hd,bs", [(16, 4), (64, 16), (128, 16)])
+@pytest.mark.parametrize("group", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("specs", [MIXED, LONG], ids=["mixed", "long"])
+def test_cuda_ragged_int8_matches_plain(cuda, specs, group, hd, bs,
+                                        q_dtype):
+    """int8 pages under a float32 q take the CUDA-core body, held to
+    1e-5; under a bf16 q the tensor-core body (scale and zero factored out
+    of both products), each output row within its limit of the float32
+    plain version. Pad rows exactly 0."""
+    q, k, v, tb, row, pos = _to(cuda, _ragged(specs, 2 * group, 2, hd, bs,
                                               seed=2))
     kq, ks, kz = ref.quantize_kv(k)
     vq, vs, vz = ref.quantize_kv(v)
     quant = {"k_scale": ks, "k_zero": kz, "v_scale": vs, "v_zero": vz}
+    q = q.to(DTYPES[q_dtype])
     ops.reset_launch_counts()
     got = ragged_attention.ragged_paged_attention(q, kq, vq, tb, row, pos,
                                                   kv_quant=quant)
     assert ops.launch_counts()["ragged_paged_attention_q8"] == 1
-    want = ref.ragged_paged_attention_reference(q, kq, vq, tb, row, pos,
-                                                kv_quant=quant)
-    torch.testing.assert_close(got, want, **F32_TOL)
+    assert _bodies("ragged_paged_attention_q8") == (
+        (0, 1) if q_dtype == "f32" else (1, 0))
+    want = ref.ragged_paged_attention_reference(q.float(), kq, vq, tb, row,
+                                                pos, kv_quant=quant)
+    _check(got, want, q.dtype)
     assert bool((got[pos < 0] == 0).all())
 
 
@@ -186,6 +237,122 @@ def test_cuda_masked_keys_never_reach_the_sum(cuda):
     out = decode_attention.paged_decode_attention(*_to(cuda, (q, k, v, tb,
                                                               kl)))
     assert bool(torch.isfinite(out).all())
+
+
+@pytest.mark.cuda
+def test_cuda_body_counts_follow_the_dtypes(cuda):
+    """Each launch counts once in ``launch_counts`` and once under the body
+    the C entry point chose: the tensor cores for 16-bit operands (and int8
+    pages under a bf16 q), the CUDA cores for float32 and for fp16 pages
+    under a bf16 q."""
+    q, k, v, tb, row, pos = _to(cuda, _ragged(MIXED, 4, 2, 16, 4))
+    kq, ks, kz = ref.quantize_kv(k)
+    vq, vs, vz = ref.quantize_kv(v)
+    quant = {"k_scale": ks, "k_zero": kz, "v_scale": vs, "v_zero": vz}
+    ops.reset_launch_counts()
+    for qq, kk, vv, kvq in ((q, k, v, None), (q.bfloat16(), k.bfloat16(),
+                                              v.bfloat16(), None),
+                            (q.bfloat16(), k.half(), v.half(), None),
+                            (q, kq, vq, quant), (q.bfloat16(), kq, vq, quant),
+                            (q.bfloat16(), kq, vq, quant)):
+        ops.ragged_paged_attention(qq, kk, vv, tb, row, pos, kv_quant=kvq)
+    fq, fk, fv = _to(cuda, _qkv(1, 9, 9, 4, 2, 16))
+    for dt in (torch.float32, torch.bfloat16, torch.float16,
+               torch.bfloat16):
+        ops.flash_attention(fq.to(dt), fk.to(dt), fv.to(dt))
+    counts = ops.launch_counts()
+    assert counts["ragged_paged_attention"] == 3
+    assert counts["ragged_paged_attention_q8"] == 3
+    assert counts["flash_attention"] == 4
+    assert ops.body_counts() == {
+        "ragged_paged_attention/tensor_core": 1,
+        "ragged_paged_attention/cuda_core": 2,
+        "ragged_paged_attention_q8/tensor_core": 2,
+        "ragged_paged_attention_q8/cuda_core": 1,
+        "flash_attention/tensor_core": 3,
+        "flash_attention/cuda_core": 1}
+    ops.reset_launch_counts()
+    assert not any(ops.body_counts().values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pages", ["bf16", "int8"])
+def test_cuda_masked_keys_never_reach_the_sum_bf16(cuda, pages):
+    """The tensor-core body multiplies whole tiles, so NaN past every
+    token's span (the trash page, the rest of each last page; for int8
+    pages their scales and zeros too) must be kept out by the zero-filled
+    loads: no output turns non-finite, and pad rows stay exactly 0."""
+    q, k, v, tb, row, pos = _ragged(LONG, 8, 2, 64, 16, seed=11)
+    quant = None
+    if pages == "int8":
+        k, ks, kz = ref.quantize_kv(k)
+        v, vs, vz = ref.quantize_kv(v)
+        quant = {"k_scale": ks, "k_zero": kz, "v_scale": vs, "v_zero": vz}
+        poisoned = list(quant.values())
+    else:
+        k, v = k.bfloat16(), v.bfloat16()
+        poisoned = [k, v]
+    for a in poisoned:
+        a[-1] = float("nan")                          # the trash page
+        for r, (h, n) in enumerate(LONG):             # the rest of each page
+            last = h + n - 1
+            a[tb[r, last // 16], last % 16 + 1:] = float("nan")
+            for blk in range(last // 16 + 1, tb.shape[1]):
+                a[tb[r, blk]] = float("nan")          # pages past the span
+    q, k, v, tb, row, pos = _to(cuda, (q.bfloat16(), k, v, tb, row, pos))
+    if quant is not None:
+        quant = {n: a.to(cuda) for n, a in quant.items()}
+    ops.reset_launch_counts()
+    out = ragged_attention.ragged_paged_attention(q, k, v, tb, row, pos,
+                                                  kv_quant=quant)
+    name = ("ragged_paged_attention_q8" if quant
+            else "ragged_paged_attention")
+    assert _bodies(name) == (1, 0)
+    assert bool(torch.isfinite(out).all())
+    assert bool((out[pos < 0] == 0).all())
+    fq, fk, fv = _qkv(1, 70, 150, 8, 2, 64, seed=12)
+    fk[:, 70:] = float("nan")                         # past causal row 69
+    fv[:, 70:] = float("nan")
+    out = flash_attention.flash_attention(
+        *[a.to(cuda, torch.bfloat16) for a in (fq, fk, fv)], causal=True)
+    assert bool(torch.isfinite(out).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["contiguous", "paged", "paged-int8"])
+def test_cuda_bf16_model_prefill_matches_plain_kernels(cuda, monkeypatch,
+                                                       layout):
+    """A bf16 smoke-width model's prefill through the tensor-core bodies
+    against the same call on the card with ``ops`` patched to the plain
+    versions: last-token logits within 2^-5 of their largest |value| (the
+    kernels round P to bf16 and their sums run in another order; the
+    difference is carried through the layers' bf16 activations)."""
+    import dataclasses
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(smoke_variant(get_config("granite-3-8b")),
+                              dtype="bfloat16")
+    m = Model(cfg)
+    params = m.init(torch.Generator(device="cuda").manual_seed(0),
+                    device="cuda")
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab, (2, 75)).astype(np.int32)).to(cuda)
+    kw = dict(paged=layout != "contiguous",
+              kv_dtype="int8" if layout == "paged-int8" else None)
+    ops.reset_launch_counts()
+    got, _ = m.prefill(params, tokens, 128, **kw)
+    kernel = ("flash_attention" if layout == "contiguous"
+              else "ragged_paged_attention_q8" if layout == "paged-int8"
+              else "ragged_paged_attention")
+    assert _bodies(kernel) == (cfg.n_layers, 0)
+    monkeypatch.setattr(ops, "flash_attention", ref.mha_reference)
+    monkeypatch.setattr(ops, "ragged_paged_attention",
+                        ref.ragged_paged_attention_reference)
+    want, _ = m.prefill(params, tokens, 128, **kw)
+    assert got.dtype == torch.bfloat16
+    d = (got.float() - want.float()).abs().amax(-1)
+    lim = 2.0 ** -5 * want.float().abs().amax(-1)
+    assert bool((d <= lim).all()), float((d / lim).max())
 
 
 @pytest.mark.cuda
@@ -238,19 +405,6 @@ def _tree_to(tree, dev):
 # the slot-contiguous kernels: flash (prefill) and decode attention
 # ---------------------------------------------------------------------------
 
-DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "fp16": torch.float16}
-
-
-def _check(got, want, dtype):
-    """f32 outputs at F32_TOL; bf16/fp16 outputs row by row against the
-    float32 plain version."""
-    if dtype == torch.float32:
-        torch.testing.assert_close(got, want, **F32_TOL)
-    else:
-        assert got.dtype == dtype
-        _assert_rows_close(got, want)
-
-
 def _qkv(b, sq, sk, hq, hkv, hd, seed=0):
     rng = np.random.RandomState(seed)
     return [torch.from_numpy(rng.randn(b, n, h, hd).astype(np.float32))
@@ -260,7 +414,7 @@ def _qkv(b, sq, sk, hq, hkv, hd, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("hd", [16, 32, 64, 128])
-@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("group", [1, 2, 3, 4, 8])
 def test_cuda_flash_matches_plain(cuda, group, hd, dtype):
     """Causal prefill (Sq = Sk, not a multiple of any tile) at batch 2."""
     dt = DTYPES[dtype]
@@ -279,13 +433,22 @@ def test_cuda_flash_matches_plain(cuda, group, hd, dtype):
     ids=["causal-300", "causal-offset", "causal-offset-past-sk",
          "noncausal", "noncausal-sk1"])
 @pytest.mark.parametrize("group", [1, 4])
-def test_cuda_flash_offsets_and_edges(cuda, group, causal, q_offset, sq, sk):
-    q, k, v = [a.to(cuda) for a in _qkv(1, sq, sk, 2 * group, 2, 64,
-                                        seed=4)]
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_cuda_flash_offsets_and_edges(cuda, dtype, group, causal, q_offset,
+                                      sq, sk):
+    """float32 through the CUDA-core body (1e-5), bf16 through the
+    tensor-core body (each output row within its limit)."""
+    dt = DTYPES[dtype]
+    q, k, v = [a.to(cuda, dt) for a in _qkv(1, sq, sk, 2 * group, 2, 64,
+                                            seed=4)]
+    ops.reset_launch_counts()
     got = flash_attention.flash_attention(q, k, v, causal=causal,
                                           q_offset=q_offset)
-    want = ref.mha_reference(q, k, v, causal=causal, q_offset=q_offset)
-    torch.testing.assert_close(got, want, **F32_TOL)
+    assert _bodies("flash_attention") == ((0, 1) if dtype == "f32"
+                                          else (1, 0))
+    want = ref.mha_reference(q.float(), k.float(), v.float(), causal=causal,
+                             q_offset=q_offset)
+    _check(got, want, dt)
 
 
 def _contig_decode(lens, s, hq, hkv, hd, seed=0):

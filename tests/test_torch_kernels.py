@@ -16,7 +16,10 @@ quantization matches byte for byte.
 
 The CUDA kernels themselves run only on the card: ``test_torch_cuda.py``
 (marker ``cuda``) holds them against these plain versions and skips here;
-``chip_smoke.py`` does so at the main path's shapes.
+``chip_smoke.py`` does so at the main path's shapes. The last section
+emulates the tensor-core bodies' rounding points in plain torch at
+granite-3-8b's attention widths and holds them to the row limit the card
+tests use.
 """
 
 import jax
@@ -409,3 +412,148 @@ def test_wkv6_out_state_is_written_in_place():
     assert out is s
     torch.testing.assert_close(y, want_y, atol=0, rtol=0)
     torch.testing.assert_close(s, want_s, atol=0, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core bodies' rounding points, emulated in plain torch
+# ---------------------------------------------------------------------------
+
+# (history, new tokens) per request: chip_smoke.py's mixed ragged batch
+MIXED_FULL = [(300, 256), (100, 203), (1023, 1), (776, 1), (299, 1), (0, 1)]
+FULL = dict(hq=32, hkv=8, hd=128, bs=16)   # granite-3-8b's attention
+
+
+def _emulate_mma(qs, kf, vf, mask, quant=None, rounded=True):
+    """The tensor-core body's arithmetic (``csrc/mma_attention.cuh``) with
+    the softmax taken whole: qs (Hkv,G,tr,hd), kf/vf (Hkv,1,n,hd) float
+    holding bf16 values or int8 codes, mask (tr,n). 16-bit pages: P rounded
+    to bf16, l summed from the rounded P. int8 pages (``quant`` = scale and
+    zero (Hkv,1,1,n) each of K and V): scale and zero factored out of both
+    products, the PV operand p * v_scale rounded to fp16, l summed from the
+    f32 P. ``rounded=False`` keeps every value in f32."""
+    scale = tref.softmax_scale(qs.shape[-1])
+    s = qs @ kf.transpose(-1, -2)
+    if quant is not None:
+        ks, kz, vs, vz = quant
+        s = ks * s + kz * qs.sum(-1, keepdim=True)
+    s = torch.where(mask, s * scale, torch.full_like(s, tref.NEG_INF))
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), torch.zeros_like(s))
+    if quant is None:
+        if rounded:
+            p = p.to(torch.bfloat16).float()
+        num = p @ vf
+    else:
+        a = p * vs
+        if rounded:
+            a = a.to(torch.float16).float()
+        num = a @ vf + (p * vz).sum(-1, keepdim=True)
+    return num / torch.clamp_min(p.sum(-1, keepdim=True), 1e-30)
+
+
+def _emulate_ragged(q, kp, vp, tables, row, pos, quant=None, rounded=True):
+    """``_emulate_mma`` over a ragged batch, gathered as the plain version
+    gathers it. q (T,Hq,hd) float; pages as stored."""
+    t, hq, hd = q.shape
+    hkv = kp.shape[2]
+    out = torch.zeros((t, hq, hd))
+    live = pos >= 0
+    for r in torch.unique(row[live]).tolist():
+        sel = torch.nonzero(live & (row == r)).flatten()
+        n = int(pos[sel].max()) + 1
+
+        def rows(a):
+            return tref._gather_rows(a, tables[r], n).float()
+
+        kf = rows(kp).permute(1, 0, 2)[:, None]
+        vf = rows(vp).permute(1, 0, 2)[:, None]
+        qn = None if quant is None else [
+            rows(quant[k]).permute(1, 0)[:, None, None]
+            for k in ("k_scale", "k_zero", "v_scale", "v_zero")]
+        qs = q[sel].reshape(-1, hkv, hq // hkv, hd).permute(1, 2, 0, 3)
+        mask = torch.arange(n)[None, :] <= pos[sel][:, None]
+        o = _emulate_mma(qs, kf, vf, mask, qn, rounded)
+        out[sel] = o.permute(2, 0, 1, 3).reshape(-1, hq, hd)
+    return out
+
+
+def _full_ragged(seed):
+    d = _ragged(MIXED_FULL, FULL["hkv"], FULL["hq"] // FULL["hkv"],
+                FULL["bs"], seed=seed)
+    rng = np.random.RandomState(seed + 100)
+    shape = d["k"].shape[:-1] + (FULL["hd"],)
+    t = len(d["row"])
+    return dict(d, q=rng.randn(t, FULL["hq"], FULL["hd"]).astype(np.float32),
+                k=rng.randn(*shape).astype(np.float32),
+                v=rng.randn(*shape).astype(np.float32))
+
+
+def _rows_within_limit(got, want):
+    d = (got - want).abs().amax(-1)
+    lim = ROW_REL * want.abs().amax(-1) + ROW_ATOL
+    ratio = float((d / lim).max())
+    assert ratio <= 1.0, ratio
+
+
+@pytest.mark.parametrize("case", ["flash-300", "flash-412", "ragged-bf16",
+                                  "ragged-int8"])
+def test_mma_rounding_holds_the_row_limit(case):
+    """At granite-3-8b's attention (Hq 32, Hkv 8, hd 128), the tensor-core
+    bodies' rounding points (bf16 P with l from the rounded P; for int8
+    pages the factorised products with an fp16 PV operand) followed by the
+    output's own bf16 rounding keep every output row within 2^-7 of its
+    largest |value| plus 1e-4 of the float32 plain version, the limit
+    ``chip_smoke.py`` and ``test_torch_cuda.py`` hold the kernels to."""
+    bf = torch.bfloat16
+    if case.startswith("flash"):
+        sq = int(case.split("-")[1])
+        rng = np.random.RandomState(sq)
+        q, k, v = (torch.from_numpy(rng.randn(1, sq, h, FULL["hd"])
+                                    .astype(np.float32)).to(bf).float()
+                   for h in (FULL["hq"], FULL["hkv"], FULL["hkv"]))
+        want = tref.mha_reference(q, k, v)
+        g = FULL["hq"] // FULL["hkv"]
+        qs = q[0].reshape(sq, FULL["hkv"], g, -1).permute(1, 2, 0, 3)
+        mask = torch.arange(sq)[None, :] <= torch.arange(sq)[:, None]
+        o = _emulate_mma(qs, k[0].permute(1, 0, 2)[:, None],
+                         v[0].permute(1, 0, 2)[:, None], mask)
+        got = o.permute(2, 0, 1, 3).reshape(1, sq, FULL["hq"], -1)
+    else:
+        d = _full_ragged(seed=2)
+        q = _torch(d["q"]).to(bf).float()
+        tb, row, pos = (_torch(d[n]) for n in ("tables", "row", "pos"))
+        if case == "ragged-bf16":
+            k, v = (_torch(d[n]).to(bf).float() for n in ("k", "v"))
+            quant = None
+            want = tref.ragged_paged_attention_reference(q, k, v, tb, row,
+                                                         pos)
+            got = _emulate_ragged(q, k, v, tb, row, pos)
+        else:
+            k, ks, kz = tref.quantize_kv(_torch(d["k"]))
+            v, vs, vz = tref.quantize_kv(_torch(d["v"]))
+            quant = {"k_scale": ks, "k_zero": kz, "v_scale": vs,
+                     "v_zero": vz}
+            want = tref.ragged_paged_attention_reference(
+                q, k, v, tb, row, pos, kv_quant=quant)
+            got = _emulate_ragged(q, k, v, tb, row, pos, quant)
+        assert bool((got[pos < 0] == 0).all())
+    _rows_within_limit(got.to(bf).float(), want)
+
+
+@pytest.mark.parametrize("specs", [MATRIX[0][1], MATRIX[4][1]],
+                         ids=["decode-only", "mixed"])
+@pytest.mark.parametrize("group", [1, 4])
+def test_int8_factorisation_equals_the_dequantized_product(specs, group):
+    """In float32 (no rounding), scale and zero factored out of both
+    products equal the plain version's dequantize-then-multiply to
+    1e-5."""
+    d = _ragged(specs, 2, group, 4, seed=9)
+    k, ks, kz = tref.quantize_kv(_torch(d["k"]))
+    v, vs, vz = tref.quantize_kv(_torch(d["v"]))
+    quant = {"k_scale": ks, "k_zero": kz, "v_scale": vs, "v_zero": vz}
+    q, tb, row, pos = (_torch(d[n]) for n in ("q", "tables", "row", "pos"))
+    want = tref.ragged_paged_attention_reference(q, k, v, tb, row, pos,
+                                                 kv_quant=quant)
+    got = _emulate_ragged(q, k, v, tb, row, pos, quant, rounded=False)
+    torch.testing.assert_close(got, want, **TOL)
+    assert bool((got[pos < 0] == 0).all())
