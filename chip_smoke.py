@@ -7,6 +7,8 @@ NVIDIA H100.
     python3 chip_smoke.py --quick    # build and kernel checks only
     python3 chip_smoke.py --prefill-profile   # build, then the prefill
                                      # profile of phase 3 alone
+    python3 chip_smoke.py --decode-shape      # build, then both decode
+                                     # kernels at the engine's decode step
 
 Run from the root of a checkout. Phases:
 
@@ -22,7 +24,12 @@ Run from the root of a checkout. Phases:
    batch 4 with kv_len up to 1,024, flash
    attention at batch 1, causal, Sq = Sk = 300 and 412, and the contiguous
    decode kernel at batch 4, S 1,024, kv_len 1,024/777/300/1 (and a
-   kv_len 0 row, exactly 0), and the WKV6 recurrence at rwkv6-1.6b's
+   kv_len 0 row, exactly 0); both decode kernels again at the engine's
+   own decode step (batch 4, kv_len 316/273/428/206: the serve's four
+   prompts 16 tokens in) and at kv_len 1,024/777/300/1, each under the
+   engine's table of 65 pages and S 1,024 (printed as ``DECODE``); and
+   the WKV6 recurrence at
+   rwkv6-1.6b's
    shapes (H 32, hd 64, bf16 r/k/v, float32 w and u: prefills of B 1, T 412
    and 300 from a zero and a random state, a decode step of B 4, T 1 with
    its state written in place), each output row (token, head) held to 2^-7
@@ -48,8 +55,9 @@ Run from the root of a checkout. Phases:
    than twice as far as the bf16 kernel's from its own. In the 1-stage and int8 runs, four
    decode steps run under ``torch.profiler`` (device time per step, the
    kernels that take it) and are left out of the step timings. Every
-   ragged launch of the main and int8 paths must have taken the
-   tensor-core body (``ops.body_counts``). Last, one forward of the
+   ragged and paged decode launch of the main and int8 paths must have
+   taken the tensor-core body (``ops.body_counts``). Last, one forward of
+   the
    412-token prompt through ``Model.prefill`` on each layout (flash;
    ragged over bf16 and over int8 pages) under ``torch.profiler``: the
    forward's device ms and the attention kernel's share (``PREFILL``).
@@ -61,7 +69,7 @@ Run from the root of a checkout. Phases:
    consolidates through ``full_params`` after 4 tokens. Its streams must
    equal a 1-stage contiguous engine's on the same weights; its launches
    must show flash and contiguous decode > 0 and both paged kernels at 0,
-   and every flash launch on the tensor-core body.
+   and every flash and contiguous decode launch on the tensor-core body.
    Printed: the Alg. 1 scheme, the cold-start timeline (simulated clock),
    the measured wall time and GB/s of each stage's ``materialize()`` and of
    ``full_params`` (host -> card), serve rates, a profiled window, and the
@@ -543,6 +551,8 @@ def kernel_phase(torch, quick):
         bound_ms=b_ms, bound_by=b_by, max_abs_err=err[0],
         err_over_tol=err[1])
 
+    decode_shape_phase(torch, reps, flush)
+
     rows["wkv6"] = wkv6_checks(torch, reps, flush)
 
     for name, r in rows.items():
@@ -553,6 +563,70 @@ def kernel_phase(torch, quick):
             f"timed without the hold, the card idle until the launch: "
             f"{r['ms_host_gap']:.4f} ms)")
     return rows
+
+
+# the engine's decode step at PROFILE_AT: the serve's four prompts (300,
+# 257, 412, 190 tokens) 16 tokens in, under the runner's block table
+# (max_seq 1024 // page 16 + 1 pages a row) or its 1024-row cache strips;
+# and the kernel phase's main shapes under the same table and strips
+DECODE_SHAPES = {"engine": [316, 273, 428, 206], "main": [1024, 777, 300, 1]}
+ENGINE_TABLE = 1024 // BS + 1
+ENGINE_S = 1024
+
+
+def decode_shape_phase(torch, reps, flush):
+    """Both decode kernels (bf16, Hq 32, Hkv 8, hd 128) at the engine's own
+    decode step and at the main shapes, under the engine's table width and
+    cache S: each held row by row against its float32 plain version and
+    timed beside one SDPA call and its bound. Printed as ``DECODE``.
+    Needs only the two wrappers, so it runs on earlier trees too
+    (``--decode-shape``), for a before and after from one card."""
+    from repro_torch.kernels import decode_attention as kda
+    from repro_torch.kernels import ref
+    g = torch.Generator(device="cuda").manual_seed(6)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").bfloat16()
+
+    out = {}
+    for shape, lens in DECODE_SHAPES.items():
+        b = len(lens)
+        n_pages = b * ENGINE_TABLE + 1
+        tables = torch.randperm(n_pages - 1, generator=g,
+                                device="cuda").reshape(
+            b, ENGINE_TABLE).to(torch.int32)
+        kl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        q = randn(b, 1, Hq, HD)
+        kp, vp = randn(n_pages, BS, HKV, HD), randn(n_pages, BS, HKV, HD)
+        kc, vc = randn(b, ENGINE_S, HKV, HD), randn(b, ENGINE_S, HKV, HD)
+        nbytes = sum(lens) * 2 * HKV * HD * 2 + 2 * q.numel() * 2 + b * 4
+        flops = sum(4 * Hq * HD * n for n in lens)
+        res = {}
+        for name, fn, plain, lib, table_bytes in (
+                ("paged_decode_attention",
+                 lambda: kda.paged_decode_attention(q, kp, vp, tables, kl),
+                 lambda: ref.paged_decode_attention_reference(
+                     q.float(), kp.float(), vp.float(), tables, kl),
+                 sdpa_decode(torch, q, kp, vp, tables, kl),
+                 tables.numel() * 4),
+                ("decode_attention",
+                 lambda: kda.decode_attention(q, kc, vc, kl),
+                 lambda: ref.decode_attention_reference(
+                     q.float(), kc.float(), vc.float(), kl),
+                 sdpa_contig_decode(torch, q, kc, vc, kl), 0)):
+            err = check_rows(f"{name} at the {shape} decode shape", fn(),
+                             plain())
+            b_ms, b_by = bound_ms(nbytes + table_bytes, flops, BF16_FLOPS)
+            res[name] = dict(**kernel_ms(torch, fn, reps, flush),
+                             library_ms=time_ms(torch, lib, reps,
+                                                flush=flush),
+                             bound_ms=b_ms, bound_by=b_by,
+                             max_abs_err=err[0], err_over_tol=err[1])
+            log(f"  {name} at the {shape} decode shape (kv_len "
+                f"{'/'.join(map(str, lens))}): {res[name]}")
+        out[shape] = {"kv_len": lens, "kernels": res}
+    log("DECODE " + json.dumps(out))
+    return out
 
 
 STATE_REL = 1e-4   # float32 over <= 412 steps, summed in another order
@@ -718,19 +792,21 @@ def profile_steps(torch, ep, n=4):
 
 
 # the __global__ functions of src/repro_torch/csrc, as the profiler names them
-PORT_KERNELS = ("ragged_mma_kernel", "ragged_kernel", "paged_decode_kernel",
-                "flash_mma_kernel", "flash_kernel", "decode_kernel",
-                "wkv6_kernel")
+PORT_KERNELS = ("ragged_mma_kernel", "ragged_kernel",
+                "paged_decode_mma_kernel", "paged_decode_kernel",
+                "flash_mma_kernel", "flash_kernel", "decode_mma_kernel",
+                "decode_kernel", "decode_combine_kernel", "wkv6_kernel")
 
 
 def check_bodies(counts, label):
-    """Every launch of the two kernels with a tensor-core and a CUDA-core
-    body in ``counts`` (a path's ``launch_counts``) took the tensor-core
-    body. Returns the body counts."""
+    """Every launch of the attention kernels (each with a tensor-core and a
+    CUDA-core body) in ``counts`` (a path's ``launch_counts``) took the
+    tensor-core body. Returns the body counts."""
     from repro_torch.kernels import ops
     bodies = ops.body_counts()
     for k in ("ragged_paged_attention", "ragged_paged_attention_q8",
-              "flash_attention"):
+              "paged_decode_attention", "flash_attention",
+              "decode_attention"):
         if (bodies[f"{k}/cuda_core"] != 0
                 or bodies[f"{k}/tensor_core"] != counts[k]):
             raise AssertionError(f"{label}: {k} launched {counts[k]} times, "
@@ -1443,6 +1519,9 @@ def main():
     ap.add_argument("--prefill-profile", action="store_true",
                     help="build, then only profile one granite-3-8b prefill "
                          "on each layout (no checks, no result line)")
+    ap.add_argument("--decode-shape", action="store_true",
+                    help="build, then only time both decode kernels at the "
+                         "engine's decode step (no result line)")
     args = ap.parse_args()
 
     import torch
@@ -1480,6 +1559,11 @@ def main():
     if args.prefill_profile:
         log("== prefill profile (granite-3-8b, 412 tokens, full depth)")
         prefill_profile_phase(torch)
+        return
+    if args.decode_shape:
+        log("== decode kernels at the engine's decode step")
+        decode_shape_phase(torch, 20, torch.empty(64 << 20, dtype=torch.uint8,
+                                                  device="cuda"))
         return
 
     log("== kernels vs plain versions")

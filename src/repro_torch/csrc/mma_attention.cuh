@@ -1,6 +1,8 @@
-// The tensor-core attention body shared by flash_attention.cu and
-// ragged_paged_attention.cu: FlashAttention-2's shape on Hopper's
-// mma.sync tensor cores, with K/V tiles brought in by cp.async.
+// The tensor-core attention body shared by flash_attention.cu,
+// ragged_paged_attention.cu and the two decode kernels
+// (paged_decode_attention.cu, decode_attention.cu; decode_split.cuh):
+// FlashAttention-2's shape on Hopper's mma.sync tensor cores, with K/V
+// tiles brought in by cp.async.
 //
 // A block of 4 warps owns up to 64 query rows that read one kv head (a tile
 // of query positions times the GQA group G). Warp w owns 16 of them and
@@ -36,6 +38,11 @@
 //
 // Rounding: P is rounded to the PV operand type and l sums the rounded P,
 // so numerator and denominator see the same probabilities.
+//
+// Partial rows (PARTIAL): a decode kernel runs the body on one split of a
+// row's keys, its map offsetting key positions by the split's first one,
+// and takes the unnormalised f32 state (base-2 row max m, sum l, acc o)
+// to a workspace instead of acc / l; a second pass combines the splits.
 //
 // int8 pages (Q8): scale and zero are per key row (token, kv head), so they
 // factor out of both products and no dequantized tile is made:
@@ -231,7 +238,9 @@ __device__ __forceinline__ void widen16(T* dst, const uint4 raw) {
 //     leading kv positions it attends;
 //   int64_t key(int kpos): the row index of kv position kpos in the K/V
 //     arrays seen as (rows, HD), which is also its index in the int8
-//     pages' scale/zero pools.
+//     pages' scale/zero pools;
+// and, for PARTIAL only: int64_t part(int r), row r's index in the
+// workspace arrays po (index x HD floats), pm and pl.
 
 // The row indices of one stage's keys [kpos0, kpos0 + KEYS), -1 at or past
 // len. Written a stage ahead of the loads that read them, so a page id's
@@ -413,8 +422,10 @@ __device__ __forceinline__ void fold(RowState<HD>& st, const uint32_t (&qf)[HD /
 // first 16 * WARPS / NSPLIT rows; rows from there to n_rows are the
 // caller's promise of pad rows and are written as 0.
 // QT: q and out; KT: the pages; QKT, PVT: the operand types of the two
-// products (QT and QT, or bf16 and fp16 with Q8).
-template <typename QT, typename KT, bool Q8, int HD, int NSPLIT, class Map>
+// products (QT and QT, or bf16 and fp16 with Q8). PARTIAL: write each
+// row's (m, l, o) through the map's part() instead of out, which is unused.
+template <typename QT, typename KT, bool Q8, int HD, int NSPLIT, class Map,
+          bool PARTIAL = false>
 __device__ __forceinline__ void attend(const Map& mp, const QT* __restrict__ q,
                                        const KT* __restrict__ kp, const KT* __restrict__ vp,
                                        const float* const* sc, QT* __restrict__ out, int n_rows,
@@ -425,6 +436,7 @@ __device__ __forceinline__ void attend(const Map& mp, const QT* __restrict__ q,
   constexpr int NRW = WARPS / NSPLIT;  // row groups
   constexpr int KW = KEYS / NSPLIT;    // keys a warp takes of each stage
   static_assert(NRW * NSPLIT == WARPS && KW % 16 == 0, "split");
+  static_assert(!(PARTIAL && Q8), "partial rows carry no int8 zero term");
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int rw = warp % NRW, ks = warp / NRW;
   const int g = lane >> 2, t2 = (lane & 3) * 2;
@@ -590,24 +602,44 @@ __device__ __forceinline__ void attend(const Map& mp, const QT* __restrict__ q,
   }
 
   if (ks == 0) {
+    if constexpr (PARTIAL) {
 #pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      if (!has[rr]) continue;
-      const float l = fmaxf(st.l[rr], 1e-30f);
-      QT* orow = out + qoff[rr];
+      for (int rr = 0; rr < 2; ++rr) {
+        if (!has[rr]) continue;
+        const int64_t p = mp.part(rw * 16 + g + 8 * rr);
+        float* orow = mp.po + p * HD;
 #pragma unroll
-      for (int d = 0; d < HD / 8; ++d) {
-        const float x0 = (st.o[d][2 * rr] + st.z[rr]) / l;
-        const float x1 = (st.o[d][2 * rr + 1] + st.z[rr]) / l;
-        *reinterpret_cast<uint32_t*>(orow + d * 8 + t2) = pack<QT>(x0, x1);
+        for (int d = 0; d < HD / 8; ++d) {
+          *reinterpret_cast<float2*>(orow + d * 8 + t2) =
+              make_float2(st.o[d][2 * rr], st.o[d][2 * rr + 1]);
+        }
+        if ((lane & 3) == 0) {
+          mp.pm[p] = st.m[rr];
+          mp.pl[p] = st.l[rr];
+        }
+      }
+    } else {
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        if (!has[rr]) continue;
+        const float l = fmaxf(st.l[rr], 1e-30f);
+        QT* orow = out + qoff[rr];
+#pragma unroll
+        for (int d = 0; d < HD / 8; ++d) {
+          const float x0 = (st.o[d][2 * rr] + st.z[rr]) / l;
+          const float x1 = (st.o[d][2 * rr + 1] + st.z[rr]) / l;
+          *reinterpret_cast<uint32_t*>(orow + d * 8 + t2) = pack<QT>(x0, x1);
+        }
       }
     }
   }
-  // rows past the block's row groups: pads, exactly 0
-  for (int e = NRW * 16 * HD + threadIdx.x; e < n_rows * HD; e += THREADS) {
-    int64_t off;
-    int vl;
-    if (mp.query(e / HD, off, vl)) out[off + e % HD] = QT(0.f);
+  if constexpr (!PARTIAL) {
+    // rows past the block's row groups: pads, exactly 0
+    for (int e = NRW * 16 * HD + threadIdx.x; e < n_rows * HD; e += THREADS) {
+      int64_t off;
+      int vl;
+      if (mp.query(e / HD, off, vl)) out[off + e % HD] = QT(0.f);
+    }
   }
 }
 

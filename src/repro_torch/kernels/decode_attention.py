@@ -9,6 +9,15 @@ One query token per sequence, masked by ``kv_len``, either
 * against slot-contiguous caches (B, S, Hkv, hd): ``csrc/
   decode_attention.cu`` (replaces ``decode_attention.py::decode_attention``;
   plain version ``kernels/ref.py::decode_attention_reference``).
+
+Two bodies each, chosen by dtype in the C entry points: a bf16 q over bf16
+pages, and bf16 or fp16 caches, run on the tensor cores with the key walk
+split over blocks of ``SPLIT_KEYS`` positions and a combine pass
+(``csrc/decode_split.cuh``); float32, and fp16 pages under a bf16 q, run on
+the CUDA cores (f32 FMAs), so the f32 checks hold them to 1e-5.
+``BODY_LAUNCHES`` counts each body's launches apart. The split's f32
+workspace is sized from shapes alone (``split_count``): the wrappers never
+read ``kv_len`` on the host, so a call holds no sync.
 """
 
 from __future__ import annotations
@@ -25,13 +34,40 @@ Q_DTYPES = (torch.float32, torch.bfloat16)
 PAGE_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 CACHE_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
-# launches, counted where each kernel is launched
+# kv positions a split of the tensor-core bodies: csrc/decode_split.cuh's
+# KPS, which the C entry points hold the workspace's split count to
+SPLIT_KEYS = 128
+
+# launches, counted where each kernel is launched; and by body
 LAUNCHES = {"paged_decode_attention": 0, "decode_attention": 0}
+BODY_LAUNCHES = {f"{name}/{body}": 0 for name in LAUNCHES
+                 for body in ("tensor_core", "cuda_core")}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_P] * 6 + [_I] * 6 + [ctypes.c_float, _I, _I, _P]
-_CONTIG_ARGTYPES = [_P] * 5 + [_I] * 5 + [ctypes.c_float, _I, _P]
+_ARGTYPES = ([_P] * 7 + [_I] * 7 + [ctypes.c_float, _I, _I, _P,
+                                    ctypes.POINTER(_I)])
+_CONTIG_ARGTYPES = ([_P] * 6 + [_I] * 6 + [ctypes.c_float, _I, _P,
+                                           ctypes.POINTER(_I)])
+
+
+def split_count(n_keys: int) -> int:
+    """Splits of the tensor-core bodies over ``n_keys`` kv positions (a
+    table's nb * bs, or a cache's S): a function of shapes only."""
+    return -(-n_keys // SPLIT_KEYS)
+
+
+def _workspace(q, n_split):
+    """The split's f32 partials: o (B, Hq, n_split, hd), then m and l
+    (B, Hq, n_split) each."""
+    b, _, hq, hd = q.shape
+    return torch.empty(b * hq * n_split * (hd + 2), dtype=torch.float32,
+                       device=q.device)
+
+
+def _count(name, body):
+    LAUNCHES[name] += 1
+    BODY_LAUNCHES[f"{name}/{_build.BODIES[body.value]}"] += 1
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_len):
@@ -63,16 +99,20 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_len):
     _build.check_aligned("paged_decode_attention", k_pages=k_pages,
                          v_pages=v_pages)
     out = torch.empty_like(q)
+    n_split = split_count(nb * bs)
+    ws = _workspace(q, n_split)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     fn = _build.entry("paged_decode_attention", _ARGTYPES)
+    body = ctypes.c_int(-1)
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              block_tables.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
-             b, hq, hkv, hd, nb, bs, softmax_scale(hd), _build.dtype_code(q.dtype),
-             _build.dtype_code(k_pages.dtype), stream)
+             ws.data_ptr(), b, hq, hkv, hd, nb, bs, n_split,
+             softmax_scale(hd), _build.dtype_code(q.dtype),
+             _build.dtype_code(k_pages.dtype), stream, ctypes.byref(body))
     if err:
         raise RuntimeError(f"paged_decode_attention launch failed: CUDA "
                            f"error {err}")
-    LAUNCHES["paged_decode_attention"] += 1
+    _count("paged_decode_attention", body)
     return out
 
 
@@ -105,13 +145,17 @@ def decode_attention(q, k_cache, v_cache, kv_len):
     _build.check_aligned("decode_attention", k_cache=k_cache,
                          v_cache=v_cache)
     out = torch.empty_like(q)
+    n_split = split_count(s)
+    ws = _workspace(q, n_split)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     fn = _build.entry("decode_attention", _CONTIG_ARGTYPES)
+    body = ctypes.c_int(-1)
     err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-             kv_len.data_ptr(), out.data_ptr(), b, s, hq, hkv, hd,
-             softmax_scale(hd), _build.dtype_code(q.dtype), stream)
+             kv_len.data_ptr(), out.data_ptr(), ws.data_ptr(), b, s, hq, hkv,
+             hd, n_split, softmax_scale(hd), _build.dtype_code(q.dtype),
+             stream, ctypes.byref(body))
     if err:
         raise RuntimeError(f"decode_attention launch failed: CUDA error "
                            f"{err}")
-    LAUNCHES["decode_attention"] += 1
+    _count("decode_attention", body)
     return out

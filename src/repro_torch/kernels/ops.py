@@ -6,9 +6,9 @@ kernel, which launches or raises. There is no switch that runs the plain
 version on the card.
 
 Each kernel counts its launches (``launch_counts``), so a run can show
-that its attention and its recurrences went through the kernels; the two
-kernels with a tensor-core and a CUDA-core body also count each body's
-launches (``body_counts``).
+that its attention and its recurrences went through the kernels; the
+attention kernels, each with a tensor-core and a CUDA-core body, also count
+each body's launches (``body_counts``).
 """
 
 from __future__ import annotations
@@ -22,7 +22,8 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import wkv6 as _wkv
 
 _COUNTS = (_ra.LAUNCHES, _da.LAUNCHES, _fa.LAUNCHES, _wkv.LAUNCHES)
-_BODY_COUNTS = (_ra.BODY_LAUNCHES, _fa.BODY_LAUNCHES)
+_BODY_COUNTS = (_ra.BODY_LAUNCHES, _da.BODY_LAUNCHES,
+                _fa.BODY_LAUNCHES)
 
 
 def _on_card(t) -> bool:

@@ -12,10 +12,12 @@ dependencies are installed:
 
 Inputs come from numpy seeds; the paged ones in the serving runner's
 ragged layout (tile-aligned spans, pad tokens at pos -1, pages at
-scattered ids). The ragged and flash kernels have two bodies each, counted
+scattered ids). The four attention kernels have two bodies each, counted
 apart (``ops.body_counts``): bf16/fp16 operands (and int8 pages under a
 bf16 q) take the tensor cores, float32 the CUDA cores; the bf16 cases
-check which ran.
+check which ran. The decode kernels' tensor-core bodies split each row's
+keys over blocks of ``SPLIT_KEYS`` positions, so their cases cross split
+boundaries.
 Tolerances: float32 atol = rtol = 1e-5 with TF32 off (both sides sum the
 same float32 terms in another order); a bf16 output row (token, head)
 within 2^-7 of its largest |value| plus 1e-4 (one bf16 rounding moves a
@@ -31,6 +33,7 @@ import torch
 from repro_torch.kernels import (decode_attention, flash_attention, ops,
                                  ragged_attention, wkv6)
 from repro_torch.kernels import ref
+from repro_torch.kernels.decode_attention import SPLIT_KEYS as KPS
 from repro_torch.kernels.ragged_attention import TILE_Q
 
 F32_TOL = dict(atol=1e-5, rtol=1e-5)
@@ -206,15 +209,62 @@ def test_cuda_paged_decode_matches_plain(cuda, group, hd, bs):
     assert bool((got[2] == 0).all())                  # kv_len 0
 
 
+# decode kv_len sets: the main path's, and one on either side of a split
+# boundary (an empty row, one key, one whole split, a split and one key)
+SPLIT_LENS = [[1024, 777, 300, 1], [0, 1, KPS, KPS + 1, 1024]]
+
+
 @pytest.mark.cuda
-def test_cuda_paged_decode_bf16_matches_plain(cuda):
-    q, k, v, tb, kl = _to(cuda, _decode([1024, 777, 300, 1], 32, 8, 128, 16,
-                                        seed=3))
-    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+@pytest.mark.parametrize("kv_dtype", ["bf16", "fp16"])
+@pytest.mark.parametrize("lens", SPLIT_LENS, ids=["main", "edges"])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("group", [1, 2, 3, 4, 8])
+def test_cuda_paged_decode_bf16_matches_plain(cuda, group, hd, lens,
+                                              kv_dtype):
+    """A bf16 q over bf16 pages takes the tensor-core body split over keys,
+    over fp16 pages the CUDA-core one; each output row within its limit of
+    the float32 plain version, a kv_len 0 row exactly 0. hd 128 runs
+    granite's 8 kv heads."""
+    hkv = 8 if hd == 128 else 2
+    q, k, v, tb, kl = _to(cuda, _decode(lens, hkv * group, hkv, hd, 16,
+                                        seed=hd + group))
+    q, k, v = q.bfloat16(), k.to(DTYPES[kv_dtype]), v.to(DTYPES[kv_dtype])
+    ops.reset_launch_counts()
     got = decode_attention.paged_decode_attention(q, k, v, tb, kl)
+    assert _bodies("paged_decode_attention") == (
+        (1, 0) if kv_dtype == "bf16" else (0, 1))
     want = ref.paged_decode_attention_reference(q.float(), k.float(),
                                                 v.float(), tb, kl)
     _assert_rows_close(got, want)
+    assert bool((got[kl == 0] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["paged", "contiguous"])
+def test_cuda_decode_split_is_deterministic(cuda, layout):
+    """The tensor-core decode bodies give the same bits on a second call and
+    with the table's width (paged: extra entries naming random pages) or
+    the cache's S doubled: a key's split depends on its position alone."""
+    lens = [1024, 777, 300, 1, 0, KPS, KPS + 1]
+    torch.manual_seed(0)
+    if layout == "paged":
+        q, k, v, tb, kl = _decode(lens, 32, 8, 128, 16, seed=21)
+        wide = torch.cat([tb, torch.randint(0, k.shape[0], tb.shape,
+                                            dtype=torch.int32)], 1)
+        q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+        q, k, v, tb, wide, kl = _to(cuda, (q, k, v, tb, wide, kl))
+        runs = [decode_attention.paged_decode_attention(q, k, v, t, kl)
+                for t in (tb, tb, wide)]
+    else:
+        q, k, v, kl = _contig_decode(lens, 1040, 32, 8, 128, seed=22)
+        q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+        kw, vw = (torch.cat([a, torch.randn(a.shape).bfloat16()], 1)
+                  for a in (k, v))
+        q, k, v, kw, vw, kl = _to(cuda, (q, k, v, kw, vw, kl))
+        runs = [decode_attention.decode_attention(q, kk, vv, kl)
+                for kk, vv in ((k, v), (k, v), (kw, vw))]
+    assert torch.equal(runs[0], runs[1])
+    assert torch.equal(runs[0], runs[2])
 
 
 @pytest.mark.cuda
@@ -260,15 +310,29 @@ def test_cuda_body_counts_follow_the_dtypes(cuda):
     for dt in (torch.float32, torch.bfloat16, torch.float16,
                torch.bfloat16):
         ops.flash_attention(fq.to(dt), fk.to(dt), fv.to(dt))
+    dq, dk, dv, dtb, dkl = _to(cuda, _decode([5, 9], 4, 2, 16, 4))
+    for qq, kk, vv in ((dq, dk, dv), (dq.bfloat16(), dk.bfloat16(),
+                                      dv.bfloat16()),
+                       (dq.bfloat16(), dk.half(), dv.half())):
+        ops.paged_decode_attention(qq, kk, vv, dtb, dkl)
+    cq, ck, cv, ckl = _to(cuda, _contig_decode([5, 9], 16, 4, 2, 16))
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        ops.decode_attention(cq.to(dt), ck.to(dt), cv.to(dt), ckl)
     counts = ops.launch_counts()
     assert counts["ragged_paged_attention"] == 3
     assert counts["ragged_paged_attention_q8"] == 3
     assert counts["flash_attention"] == 4
+    assert counts["paged_decode_attention"] == 3
+    assert counts["decode_attention"] == 3
     assert ops.body_counts() == {
         "ragged_paged_attention/tensor_core": 1,
         "ragged_paged_attention/cuda_core": 2,
         "ragged_paged_attention_q8/tensor_core": 2,
         "ragged_paged_attention_q8/cuda_core": 1,
+        "paged_decode_attention/tensor_core": 1,
+        "paged_decode_attention/cuda_core": 2,
+        "decode_attention/tensor_core": 2,
+        "decode_attention/cuda_core": 1,
         "flash_attention/tensor_core": 3,
         "flash_attention/cuda_core": 1}
     ops.reset_launch_counts()
@@ -316,6 +380,34 @@ def test_cuda_masked_keys_never_reach_the_sum_bf16(cuda, pages):
     out = flash_attention.flash_attention(
         *[a.to(cuda, torch.bfloat16) for a in (fq, fk, fv)], causal=True)
     assert bool(torch.isfinite(out).all())
+    if pages == "int8":
+        return
+    # the decode kernels' splits: the rest of each last page, whole pages
+    # past each span, cache rows at or past kv_len
+    lens = [5, 9, KPS + 2, 64, 1]
+    q, k, v, tb, kl = _decode(lens, 8, 2, 64, 16, seed=13)
+    k, v = k.bfloat16(), v.bfloat16()
+    for a in (k, v):
+        a[-1] = float("nan")
+        for b, n in enumerate(lens):
+            a[tb[b, n // 16], n % 16:] = float("nan")
+            for blk in range(n // 16 + 1, tb.shape[1]):
+                a[tb[b, blk]] = float("nan")
+    ops.reset_launch_counts()
+    out = decode_attention.paged_decode_attention(
+        *_to(cuda, (q.bfloat16(), k, v, tb, kl)))
+    assert _bodies("paged_decode_attention") == (1, 0)
+    assert bool(torch.isfinite(out).all())
+    q, k, v, kl = _contig_decode([5, 33, 0, 64, KPS + 2], 2 * KPS, 8, 2, 64,
+                                 seed=14)
+    for b, n in enumerate(kl.tolist()):
+        k[b, n:] = float("nan")
+        v[b, n:] = float("nan")
+    out = decode_attention.decode_attention(
+        *_to(cuda, (q.bfloat16(), k.bfloat16(), v.bfloat16(), kl)))
+    assert _bodies("decode_attention") == (1, 0)
+    assert bool(torch.isfinite(out).all())
+    assert bool((out[2] == 0).all())
 
 
 @pytest.mark.cuda
@@ -456,21 +548,32 @@ def _contig_decode(lens, s, hq, hkv, hd, seed=0):
     return q, k, v, torch.tensor(lens, dtype=torch.int32)
 
 
+# (kv_len, S) of the contiguous decode cases: a short strip, and the split
+# boundaries of SPLIT_LENS over an S that is no multiple of a split
+CONTIG_LENS = [([37, 1, 100, 64, 0], 100), (SPLIT_LENS[1], 1040)]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("lens,s", CONTIG_LENS, ids=["short", "edges"])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("hd", [16, 32, 64, 128])
-@pytest.mark.parametrize("group", [1, 2, 4])
-def test_cuda_decode_matches_plain(cuda, group, hd, dtype):
+@pytest.mark.parametrize("group", [1, 2, 3, 4, 8])
+def test_cuda_decode_matches_plain(cuda, group, hd, dtype, lens, s):
+    """float32 through the CUDA-core body (1e-5); bf16 and fp16 through the
+    tensor-core body split over keys (each output row within its limit).
+    A kv_len 0 row is exactly 0."""
     dt = DTYPES[dtype]
-    q, k, v, kl = _contig_decode([37, 1, 100, 64, 0], 100, 2 * group, 2, hd)
+    q, k, v, kl = _contig_decode(lens, s, 2 * group, 2, hd)
     q, k, v, kl = q.to(cuda, dt), k.to(cuda, dt), v.to(cuda, dt), kl.to(cuda)
     ops.reset_launch_counts()
     got = decode_attention.decode_attention(q, k, v, kl)
     assert ops.launch_counts()["decode_attention"] == 1
+    assert _bodies("decode_attention") == ((0, 1) if dtype == "f32"
+                                           else (1, 0))
     want = ref.decode_attention_reference(q.float(), k.float(), v.float(),
                                           kl)
     _check(got, want, dt)
-    assert bool((got[4] == 0).all())                  # kv_len 0: exactly 0
+    assert bool((got[kl == 0] == 0).all())            # kv_len 0: exactly 0
 
 
 @pytest.mark.cuda

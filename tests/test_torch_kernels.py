@@ -557,3 +557,212 @@ def test_int8_factorisation_equals_the_dequantized_product(specs, group):
     got = _emulate_ragged(q, k, v, tb, row, pos, quant, rounded=False)
     torch.testing.assert_close(got, want, **TOL)
     assert bool((got[pos < 0] == 0).all())
+
+
+# ---------------------------------------------------------------------------
+# the decode kernels' split over keys (csrc/decode_split.cuh), emulated
+# ---------------------------------------------------------------------------
+
+from types import SimpleNamespace  # noqa: E402
+
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import decode_attention as tda  # noqa: E402
+
+KPS = tda.SPLIT_KEYS
+LOG2E = 1.4426950408889634
+
+
+def _split_decode(q, k, v, kv_len, rounded=False):
+    """The tensor-core decode bodies' arithmetic in plain torch. q
+    (B,1,Hq,hd) float; k, v (B,L,Hkv,hd) each row's kv positions in order
+    (a paged row gathered through its table, or a cache strip); kv_len
+    (B,). Split s holds positions [s KPS, (s + 1) KPS) below the row's
+    length (the kernel zero-fills and masks the rest, which adds exact
+    zeros): base-2 scores, the split's max m, p = 2^(x - m) (bf16 with
+    ``rounded``, l summed from the rounded p), o = p v. The combine takes
+    the max M over the row's ceil(len / KPS) splits and sums o 2^(m - M)
+    and l 2^(m - M) in split order; a row with no split is 0."""
+    b, _, hq, hd = q.shape
+    n_keys, hkv = k.shape[1], k.shape[2]
+    scale2 = tref.softmax_scale(hd) * LOG2E
+    qs = q[:, 0].reshape(b, hkv, hq // hkv, hd)
+    out = torch.zeros(b, hq, hd)
+    for i, n in enumerate(kv_len.clamp(0, n_keys).tolist()):
+        parts = []
+        for k0 in range(0, n, KPS):
+            ks = k[i, k0:min(n, k0 + KPS)].permute(1, 2, 0)   # (Hkv,hd,n)
+            vs = v[i, k0:min(n, k0 + KPS)].permute(1, 0, 2)   # (Hkv,n,hd)
+            x = (qs[i] @ ks) * scale2
+            m = x.amax(-1, keepdim=True)
+            p = torch.exp2(x - m)
+            if rounded:
+                p = p.to(torch.bfloat16).float()
+            parts.append((m, p.sum(-1, keepdim=True), p @ vs))
+        if not parts:
+            continue
+        mx = torch.stack([m for m, _, _ in parts]).amax(0)
+        num, den = torch.zeros_like(parts[0][2]), torch.zeros_like(mx)
+        for m, l, o in parts:
+            c = torch.exp2(m - mx)
+            num, den = num + o * c, den + l * c
+        out[i] = (num / den.clamp_min(1e-30)).reshape(hq, hd)
+    return out[:, None]
+
+
+def _gathered(k_pages, tables):
+    """Every row's nb * bs kv positions gathered through its table."""
+    n = tables.shape[1] * k_pages.shape[1]
+    return torch.stack([tref._gather_rows(k_pages, t, n) for t in tables])
+
+
+SPLIT_LEN_SETS = [[0, 1, KPS, KPS + 1, 1024], [37, 1, 16, 50]]
+
+
+@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("lens", SPLIT_LEN_SETS, ids=["edges", "short"])
+@pytest.mark.parametrize("layout", ["paged", "contiguous"])
+def test_decode_split_combine_matches_plain(layout, lens, group):
+    """In float32, the split over keys and its combine in split order equal
+    the plain version and the JAX oracle to 1e-5, kv_len 0 rows exactly
+    0 (the contiguous oracle averages uniformly there, so it is held on
+    the other rows)."""
+    kl = np.asarray(lens, np.int32)
+    if layout == "paged":
+        d = _decode(lens, 2, group, 16)
+        args = [d[n] for n in ("q", "k", "v", "tables", "kv_len")]
+        q, k, v, tb, tkl = map(_torch, args)
+        got = _split_decode(q, _gathered(k, tb), _gathered(v, tb), tkl)
+        want = ops.paged_decode_attention(q, k, v, tb, tkl)
+        oracle = np.asarray(j_decode(*map(jnp.asarray, args)))
+    else:
+        d = _contig(lens, max(lens) + 9, group)
+        q, k, v, tkl = map(_torch, d)
+        got = _split_decode(q, k, v, tkl)
+        want = ops.decode_attention(q, k, v, tkl)
+        oracle = np.asarray(jax.jit(jref.decode_attention_reference)(
+            *map(jnp.asarray, d)))
+    torch.testing.assert_close(got, want, **TOL)
+    live = kl > 0
+    np.testing.assert_allclose(got.numpy()[live], oracle[live], **TOL)
+    assert bool((got[torch.from_numpy(~live)] == 0).all())
+
+
+@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("layout", ["paged", "contiguous"])
+def test_decode_split_bits_ignore_table_width(layout, group):
+    """A key's split depends on its position alone and splits past a row's
+    end are never read: the same K/V under a table twice as wide (the extra
+    entries naming random pages) or a cache with S doubled give the same
+    bits."""
+    lens = [0, 1, KPS, KPS + 1, 1024]
+    rng = np.random.RandomState(5)
+    if layout == "paged":
+        d = _decode(lens, 2, group, 16, seed=5)
+        q, k, v, tb, kl = map(_torch, [d[n] for n in ("q", "k", "v",
+                                                      "tables", "kv_len")])
+        wide = torch.cat([tb, torch.from_numpy(rng.randint(
+            0, k.shape[0], tb.shape).astype(np.int32))], 1)
+        a = _split_decode(q, _gathered(k, tb), _gathered(v, tb), kl)
+        b = _split_decode(q, _gathered(k, wide), _gathered(v, wide), kl)
+    else:
+        q, k, v, kl = map(_torch, _contig(lens, 1040, group, seed=5))
+        kw, vw = (torch.cat([x, torch.from_numpy(rng.randn(*x.shape).astype(
+            np.float32))], 1) for x in (k, v))
+        a = _split_decode(q, k, v, kl)
+        b = _split_decode(q, kw, vw, kl)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("layout", ["paged", "contiguous"])
+def test_decode_split_rounding_holds_the_row_limit(layout):
+    """At granite-3-8b's attention (Hq 32, Hkv 8, hd 128) and the main
+    path's kv_len 1024/777/300/1, the split bodies' rounding points (bf16 P
+    with l from the rounded P, each split against its own max) followed by
+    the output's bf16 rounding keep every output row within 2^-7 of its
+    largest |value| plus 1e-4 of the float32 plain version."""
+    lens = [1024, 777, 300, 1]
+    rng = np.random.RandomState(7)
+    b, hq, hkv, hd = len(lens), FULL["hq"], FULL["hkv"], FULL["hd"]
+    kl = torch.tensor(lens, dtype=torch.int32)
+
+    def bf(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(
+            np.float32)).to(torch.bfloat16).float()
+
+    q = bf(b, 1, hq, hd)
+    if layout == "paged":
+        bs = FULL["bs"]
+        nb = 1024 // bs + 1
+        tb = torch.from_numpy(rng.permutation(b * nb + 1)[:b * nb].reshape(
+            b, nb).astype(np.int32))
+        k, v = bf(b * nb + 1, bs, hkv, hd), bf(b * nb + 1, bs, hkv, hd)
+        want = tref.paged_decode_attention_reference(q, k, v, tb, kl)
+        got = _split_decode(q, _gathered(k, tb), _gathered(v, tb), kl,
+                            rounded=True)
+    else:
+        k, v = bf(b, 1024, hkv, hd), bf(b, 1024, hkv, hd)
+        want = tref.decode_attention_reference(q, k, v, kl)
+        got = _split_decode(q, k, v, kl, rounded=True)
+    _rows_within_limit(got.to(torch.bfloat16).float(), want)
+
+
+@pytest.mark.parametrize("layout", ["paged", "contiguous"])
+def test_decode_wrappers_size_the_split_from_shapes(monkeypatch, layout):
+    """The wrappers' host side, on the CPU with the C entry point stubbed:
+    the workspace holds B Hq n_split (hd + 2) floats, n_split = ceil(nb bs /
+    SPLIT_KEYS) or ceil(S / SPLIT_KEYS), and each launch counts once under
+    the body the entry point reports. kv_len lies on the meta device, where
+    any read of its values raises: the wrappers never read it on the host,
+    so a call holds no sync."""
+    calls = []
+
+    def entry(name, argtypes):
+        def fn(*args):
+            calls.append((name, args))
+            args[-1]._obj.value = 1               # the tensor cores
+            return 0
+        return fn
+
+    monkeypatch.setattr(_build, "check_cuda", lambda *a, **k: None)
+    monkeypatch.setattr(_build, "check_aligned", lambda *a, **k: None)
+    monkeypatch.setattr(_build, "entry", entry)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: SimpleNamespace(cuda_stream=0))
+    seen = []
+    real_empty = torch.empty
+
+    def empty(*a, **k):
+        t = real_empty(*a, **k)
+        seen.append(t)
+        return t
+
+    monkeypatch.setattr(torch, "empty", empty)
+    b, hq, hkv, hd = 3, 8, 2, 32
+    kl = torch.zeros(b, dtype=torch.int32, device="meta")
+    q = torch.zeros(b, 1, hq, hd, dtype=torch.bfloat16)
+    # the entry points' argument positions of the workspace and n_split
+    ws_at, split_at = (6, 13) if layout == "paged" else (5, 11)
+    ops.reset_launch_counts()
+    for n_keys, want_split in ((1, 1), (KPS, 1), (KPS + 1, 2),
+                               (1040, 9), (2080, 17)):
+        seen.clear()
+        if layout == "paged":
+            bs = 16 if n_keys % 16 == 0 else 1
+            pages = torch.zeros(4, bs, hkv, hd, dtype=torch.bfloat16)
+            tb = torch.zeros(b, n_keys // bs, dtype=torch.int32)
+            tda.paged_decode_attention(q, pages, pages, tb, kl)
+        else:
+            cache = torch.zeros(b, n_keys, hkv, hd, dtype=torch.bfloat16)
+            tda.decode_attention(q, cache, cache, kl)
+        assert tda.split_count(n_keys) == want_split
+        _, args = calls[-1]
+        assert args[split_at] == want_split
+        (ws,) = seen
+        assert ws.dtype == torch.float32
+        assert ws.numel() == b * hq * want_split * (hd + 2)
+        assert args[ws_at] == ws.data_ptr()
+    name = ("paged_decode_attention" if layout == "paged"
+            else "decode_attention")
+    assert ops.launch_counts()[name] == 5
+    assert ops.body_counts()[f"{name}/tensor_core"] == 5
+    ops.reset_launch_counts()
