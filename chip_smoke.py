@@ -6,9 +6,11 @@ NVIDIA H100.
                                      # and cold start
     python3 chip_smoke.py --quick    # build and kernel checks only
     python3 chip_smoke.py --prefill-profile   # build, then the prefill
-                                     # profile of phase 3 alone
+                                     # profiles of phases 3 and 5 alone
     python3 chip_smoke.py --decode-shape      # build, then both decode
                                      # kernels at the engine's decode step
+    python3 chip_smoke.py --wkv6-shape        # build, then the wkv6 kernel
+                                     # at rwkv6-1.6b's prefill and decode
 
 Run from the root of a checkout. Phases:
 
@@ -28,13 +30,12 @@ Run from the root of a checkout. Phases:
    own decode step (batch 4, kv_len 316/273/428/206: the serve's four
    prompts 16 tokens in) and at kv_len 1,024/777/300/1, each under the
    engine's table of 65 pages and S 1,024 (printed as ``DECODE``); and
-   the WKV6 recurrence at
-   rwkv6-1.6b's
-   shapes (H 32, hd 64, bf16 r/k/v, float32 w and u: prefills of B 1, T 412
-   and 300 from a zero and a random state, a decode step of B 4, T 1 with
-   its state written in place), each output row (token, head) held to 2^-7
-   of its largest |value| plus 1e-4 (bf16 output rounding is at most 2^-8
-   of it) and a WKV6 final state to 1e-4 of its largest |value|; and f32
+   the WKV6 recurrence at rwkv6-1.6b's shapes (H 32, hd 64, bf16 r/k/v,
+   float32 w and u: prefills of B 1, T 412 and 300 from a zero and a
+   random state, a decode step of B 4, T 1 with its state written in
+   place; printed as ``WKV6``), each output row (token, head) held to
+   2^-7 of its largest |value| plus 1e-4 (bf16 output rounding is at most
+   2^-8 of it) and a WKV6 final state to 1e-4 of its largest |value|; and f32
    cases at hd 16 held to 1e-5 with TF32 off. Times (CUDA events, median of
    repeats, L2 flushed before each) of the kernel, its plain version and
    one PyTorch library call for the same function where there is one (SDPA
@@ -86,8 +87,11 @@ Run from the root of a checkout. Phases:
    equal a 1-stage contiguous engine's and a 1-stage paged engine's on the
    same weights, exactly (an attention-free model runs the same kernels in
    the same order on either layout); its launches must show ``wkv6`` > 0
-   and every attention kernel at 0. Printed as for phase 4, with a
-   profiled window of the 1-stage contiguous engine.
+   and every attention kernel at 0, and ``wkv6`` launched once a layer for
+   each prompt's prefill and each decode step. Printed as for phase 4,
+   with a profiled window of the 1-stage contiguous engine; first, far
+   from that window, one 412-token ``Model.prefill`` under
+   ``torch.profiler``: its device ms and wkv6's share (``RWKV_PREFILL``).
 6. disk tier: full width, depth cut to 4 layers. A store written by
    ``deploy(..., store_dir=...)`` (inside the checkout, deleted after) is
    cold-deployed (``params=None``) by a second frontend, which must serve
@@ -645,9 +649,12 @@ def check_state(name, got, want):
 
 def wkv6_checks(torch, reps, flush):
     """The WKV6 kernel against its plain version: float32 at hd 16, then
-    rwkv6-1.6b's prefill and decode shapes. Returns the kernel's row: the
-    prefill at T 412 from the cache's (zero) state, updated in place, as
-    the main path calls it."""
+    rwkv6-1.6b's prefill (B 1, T 300 and 412) and decode (B 4, T 1) shapes,
+    each timed beside its plain version and its bound. Printed as ``WKV6``.
+    Needs only the wrapper, so it runs on earlier trees too
+    (``--wkv6-shape``), for a before and after from one card. Returns the
+    kernel's row: the prefill at T 412 from the cache's (zero) state,
+    updated in place, as the main path calls it."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import wkv6 as kwkv
     from repro_torch.configs import get_config
@@ -679,7 +686,7 @@ def wkv6_checks(torch, reps, flush):
         check_state(f"wkv6 {label}", s_t, want_s)
         return err
 
-    row = None
+    out = {}
     for t in (300, 412):
         r, k, v, w, u, s0 = inputs(1, t, h, hd, torch.bfloat16)
         held(f"bf16 B1 T{t} zero state", r, k, v, w, u, None, False)
@@ -695,18 +702,20 @@ def wkv6_checks(torch, reps, flush):
             library_ms=None, bound_ms=b_ms, bound_by=b_by,
             max_abs_err=err[0], err_over_tol=err[1])
         log(f"  wkv6 B1 T{t} (prefill): {res}")
-        row = res
+        out[f"prefill B1 T{t}"] = res
     r, k, v, w, u, s0 = inputs(4, 1, h, hd, torch.bfloat16)
-    held("bf16 B4 T1 (decode) in place", r, k, v, w, u, s0, True)
+    err = held("bf16 B4 T1 (decode) in place", r, k, v, w, u, s0, True)
     b_ms, b_by = bound_ms(*wkv6_cost(r, w, s0), F32_FLOPS)
-    dec = dict(**kernel_ms(torch, lambda: kwkv.wkv6(r, k, v, w, u, s0,
-                                                    out_state=s0), reps,
-                           flush),
-               plain_ms=time_ms(torch, lambda: ref.wkv6_reference(
-                   r, k, v, w, u, s0), reps, flush=flush),
-               bound_ms=b_ms, bound_by=b_by)
-    log(f"  wkv6 B4 T1 (decode): {dec}")
-    return row
+    out["decode B4 T1"] = dict(
+        **kernel_ms(torch, lambda: kwkv.wkv6(r, k, v, w, u, s0,
+                                             out_state=s0), reps, flush),
+        plain_ms=time_ms(torch, lambda: ref.wkv6_reference(
+            r, k, v, w, u, s0), reps, flush=flush),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by, max_abs_err=err[0],
+        err_over_tol=err[1])
+    log(f"  wkv6 B4 T1 (decode): {out['decode B4 T1']}")
+    log("WKV6 " + json.dumps(out))
+    return out["prefill B1 T412"]
 
 
 def wkv6_cost(r, w, state):
@@ -816,6 +825,30 @@ def check_bodies(counts, label):
     return bodies
 
 
+def profiled_prefill(torch, model, params, tokens, kw, names):
+    """One forward of ``tokens`` through ``Model.prefill(**kw)`` under
+    ``torch.profiler``, after one warm-up forward: the forward's device ms
+    (all kernels; one stream), the ms of the kernels whose ``__global__``
+    names are in ``names``, the profiled wall ms and the top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    model.prefill(params, tokens, 1024, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.prefill(params, tokens, 1024, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = {e.key: e.device_time_total / 1e3 for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
+    ours = sum(v for k, v in kern.items()
+               if any(f"::{n}<" in k for n in names))
+    top = sorted(kern.items(), key=lambda kv: -kv[1])[:5]
+    return (sum(kern.values()), ours, wall * 1e3,
+            {k[:60]: v for k, v in top})
+
+
 def prefill_profile(torch, model, params, prompt):
     """One forward of ``prompt`` (one sequence) through ``Model.prefill``
     under ``torch.profiler`` on each layout: ``paged=False`` (flash
@@ -823,8 +856,6 @@ def prefill_profile(torch, model, params, prompt):
     kernel), each after one warm-up forward. Returns, per layout, the
     forward's device ms (all kernels; one stream) and the attention
     kernel's ms and share of it."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     tokens = torch.tensor([prompt], dtype=torch.int32, device="cuda")
     flash = ("flash_mma_kernel", "flash_kernel")
     ragged = ("ragged_mma_kernel", "ragged_kernel")
@@ -834,44 +865,58 @@ def prefill_profile(torch, model, params, prompt):
             ("paged, bf16 pages (ragged)", dict(paged=True), ragged),
             ("paged, int8 pages (ragged)", dict(paged=True, kv_dtype="int8"),
              ragged)):
-        model.prefill(params, tokens, 1024, **kw)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            model.prefill(params, tokens, 1024, **kw)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        kern = {e.key: e.device_time_total / 1e3 for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA}
-        total = sum(kern.values())
-        attn = sum(v for k, v in kern.items()
-                   if any(f"::{n}<" in k for n in names))
-        top = sorted(kern.items(), key=lambda kv: -kv[1])[:5]
+        total, attn, wall, top = profiled_prefill(torch, model, params,
+                                                  tokens, kw, names)
         res[label] = {"tokens": len(prompt), "device_ms": total,
                       "attention_kernel_ms": attn,
                       "attention_share": attn / total if total else None,
-                      "profiled_wall_ms": wall * 1e3,
-                      "top_kernels_ms": {k[:60]: v for k, v in top}}
+                      "profiled_wall_ms": wall, "top_kernels_ms": top}
         log(f"  prefill of {len(prompt)} tokens, {label}: device "
             f"{total:.3f} ms, attention kernel {attn:.3f} ms "
             f"({res[label]['attention_share']:.3f} of it); profiled wall "
-            f"{wall * 1e3:.1f} ms")
+            f"{wall:.1f} ms")
     log("PREFILL " + json.dumps(res))
     return res
 
 
+def rwkv_prefill_profile(torch, model, params, prompt):
+    """One forward of ``prompt`` through rwkv6-1.6b's ``Model.prefill``
+    (slot-contiguous, the only layout of a recurrent model's prefill) under
+    ``torch.profiler``: its device ms and the wkv6 kernel's ms and share.
+    Printed as ``RWKV_PREFILL``."""
+    total, wkv, wall, top = profiled_prefill(
+        torch, model, params,
+        torch.tensor([prompt], dtype=torch.int32, device="cuda"),
+        dict(paged=False), ("wkv6_kernel",))
+    pre = {"tokens": len(prompt), "device_ms": total, "wkv6_kernel_ms": wkv,
+           "wkv6_share": wkv / total if total else None,
+           "profiled_wall_ms": wall, "top_kernels_ms": top}
+    if not wkv > 0:
+        raise AssertionError("rwkv prefill profile: no wkv6 kernel time")
+    log(f"  rwkv prefill of {len(prompt)} tokens, contiguous: device "
+        f"{total:.3f} ms, wkv6 kernel {wkv:.3f} ms ({pre['wkv6_share']:.3f} "
+        f"of it); profiled wall {wall:.1f} ms")
+    log("RWKV_PREFILL " + json.dumps(pre))
+    return pre
+
+
 def prefill_profile_phase(torch):
     """``--prefill-profile``: full-depth granite-3-8b on random weights,
-    the prefill profile alone (it runs on an earlier tree too, for a before
-    and after from one card)."""
+    the prefill profile alone, then rwkv6-1.6b's (both run on an earlier
+    tree too, for a before and after from one card)."""
+    import gc
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
-    cfg = get_config("granite-3-8b")
-    model = Model(cfg)
-    params = model.init(torch.Generator(device="cuda").manual_seed(0),
-                        device="cuda")
-    return prefill_profile(torch, model, params, main_prompts(cfg.vocab)[2])
+    for name, profile in (("granite-3-8b", prefill_profile),
+                          ("rwkv6-1.6b", rwkv_prefill_profile)):
+        cfg = get_config(name)
+        model = Model(cfg)
+        params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                            device="cuda")
+        profile(torch, model, params, main_prompts(cfg.vocab)[2])
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def divergence_witness(torch, model, params, prompts, streams, q8_streams):
@@ -1334,6 +1379,8 @@ def rwkv_phase(torch):
         f"params in {cfg.dtype} ({model.bytes() / 1e9:.3f} GB), drawn in "
         f"{time.perf_counter() - t0:.1f} s; recurrent state "
         f"{state_bytes / 1e6:.2f} MB a slot")
+    # one profiled prefill, far from the decode profile of the serve below
+    rwkv_prefill_profile(torch, model, params, prompts[2])
     front = frontend(torch)
     t0 = time.perf_counter()
     store = front.deploy(cfg, params, profile_of(model))
@@ -1368,8 +1415,15 @@ def rwkv_phase(torch):
     log(f"  launches on the rwkv path: {counts}")
     if ep.n_stages != 1:
         raise AssertionError("endpoint was not consolidated")
-    if counts["wkv6"] <= 0:
-        raise AssertionError("wkv6 never launched on the rwkv path")
+    # one launch a layer for each prompt's prefill and each decode step
+    # (every request's first token comes from its prefill)
+    n_prefill = cfg.n_layers * len(prompts)
+    n_decode = cfg.n_layers * (MAX_NEW - 1)
+    if counts["wkv6"] != n_prefill + n_decode:
+        raise AssertionError(f"wkv6 launched {counts['wkv6']} times on the "
+                             f"rwkv path, not {n_prefill} prefill + "
+                             f"{n_decode} decode")
+    log(f"  wkv6 launches: {n_prefill} prefill + {n_decode} decode")
     for k in ATTN_KERNELS:
         if counts[k] != 0:
             raise AssertionError(f"{k} launched on an attention-free model")
@@ -1518,10 +1572,15 @@ def main():
                     help="build and check the kernels only")
     ap.add_argument("--prefill-profile", action="store_true",
                     help="build, then only profile one granite-3-8b prefill "
-                         "on each layout (no checks, no result line)")
+                         "on each layout and one rwkv6-1.6b prefill (no "
+                         "result line)")
     ap.add_argument("--decode-shape", action="store_true",
                     help="build, then only time both decode kernels at the "
                          "engine's decode step (no result line)")
+    ap.add_argument("--wkv6-shape", action="store_true",
+                    help="build, then only check and time the wkv6 kernel "
+                         "at rwkv6-1.6b's prefill and decode shapes (no "
+                         "result line)")
     args = ap.parse_args()
 
     import torch
@@ -1557,13 +1616,19 @@ def main():
             f"a thread, {spills} bytes of spill stores and loads (ptxas)")
 
     if args.prefill_profile:
-        log("== prefill profile (granite-3-8b, 412 tokens, full depth)")
+        log("== prefill profiles (granite-3-8b, then rwkv6-1.6b; 412 "
+            "tokens, full depth)")
         prefill_profile_phase(torch)
         return
     if args.decode_shape:
         log("== decode kernels at the engine's decode step")
         decode_shape_phase(torch, 20, torch.empty(64 << 20, dtype=torch.uint8,
                                                   device="cuda"))
+        return
+    if args.wkv6_shape:
+        log("== wkv6 at rwkv6-1.6b's prefill and decode shapes")
+        wkv6_checks(torch, 20, torch.empty(64 << 20, dtype=torch.uint8,
+                                           device="cuda"))
         return
 
     log("== kernels vs plain versions")

@@ -2,9 +2,13 @@
 
 ``csrc/wkv6.cu`` replaces ``src/repro/kernels/wkv6.py::wkv6``; its plain
 version is ``kernels/ref.py::wkv6_chunked`` (``wkv6_reference`` per chunk).
-One block per (batch row, head) walks the time axis with the float32 state
-in registers, reads the initial state once and writes the final one once,
-so the final state may overwrite the initial one in place.
+One block per (batch row, head, group of ``COLUMNS_PER_BLOCK`` value
+columns) walks the time axis with its columns of the float32 state in
+registers, each column's key rows split over ``row_lanes(T)`` lanes whose
+partial outputs are added in one fixed shuffle order; the rows of
+``STEPS_PER_TILE`` steps are staged a tile ahead with ``cp.async``. A block
+reads its columns of the initial state once and writes them once, so the
+final state may overwrite the initial one in place.
 """
 
 from __future__ import annotations
@@ -17,6 +21,21 @@ from repro_torch.kernels import _build
 
 HEAD_DIMS = (16, 32, 64, 128)
 RKV_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+# CT, JC, IG and IG_SHORT of csrc/wkv6.cu: steps a staged tile, value
+# columns a block (at most hd), and the lanes that split one column's key
+# rows in a launch of at least one whole tile and in a shorter one
+STEPS_PER_TILE = 16
+COLUMNS_PER_BLOCK = 16
+ROW_LANES = 16
+SHORT_ROW_LANES = 8
+
+
+def row_lanes(t: int) -> int:
+    """The lanes over which the kernel sums y in a launch of ``t`` steps:
+    the order of that sum (a shuffle tree over them) depends on this
+    alone."""
+    return ROW_LANES if t >= STEPS_PER_TILE else SHORT_ROW_LANES
+
 
 # launches, counted where the kernel is launched
 LAUNCHES = {"wkv6": 0}
@@ -42,6 +61,9 @@ def wkv6(r, k, v, w, u, initial_state=None, *, out_state=None):
     stream; raises on anything it does not take."""
     _build.check_cuda("wkv6", r=r, k=k, v=v, w=w, u=u,
                       initial_state=initial_state, out_state=out_state)
+    _build.check_aligned("wkv6", r=r, k=k, v=v, w=w, u=u, **{
+        n: s for n, s in (("initial_state", initial_state),
+                          ("out_state", out_state)) if s is not None})
     b, t, h, n = r.shape
     if k.shape != r.shape or v.shape != r.shape or w.shape != r.shape:
         raise ValueError(f"wkv6: r/k/v/w shapes {tuple(r.shape)}/"

@@ -40,7 +40,11 @@ The reference's ``paged=None`` follows its ``REPRO_DECODE_MODE`` switch
 mean the paged layout, so callers ask for ``paged=False``.
 
 Not in this slice: the multi-tier KV spill (``kv_tier``) and the
-KV-lifecycle sanitizer (``sanitize=True``) raise ``NotImplementedError``.
+KV-lifecycle sanitizer (``sanitize=True``) raise ``NotImplementedError``,
+and ``submit(prefix_embeds=...)`` (VLM prefixes) raises ``ValueError``
+before anything is admitted. ``kv_tier`` stays an attribute (always None)
+and ``n_attn_layers`` and ``queue`` are the reference's, so the
+reference's ``KVSanitizer.install`` attaches to this engine as it is.
 
 Most callers should not hold an Engine directly: ``ServingEndpoint``
 (serving/endpoint.py) is the stable handle that swaps engines in place
@@ -91,6 +95,7 @@ class Engine:
                                       "(sanitize=True) is not ported yet")
         self.device = resolve_device(device)
         self.cfg = cfg
+        self.kv_tier = None
         self.model = Model(cfg)     # dense decoders: attention and rwkv
         if paged is None:
             paged = True
@@ -169,6 +174,12 @@ class Engine:
         return self.runner.workers
 
     @property
+    def queue(self):
+        """The waiting (never-admitted) pool; preempted requests live in
+        ``scheduler.preempted``."""
+        return self.scheduler.waiting
+
+    @property
     def slots(self):
         return self.scheduler.slots
 
@@ -223,12 +234,12 @@ class Engine:
             params = SamplingParams(max_new=max_new)
         if params is None:
             params = SamplingParams()
-        if prefix_embeds is not None and self.fused:
+        if prefix_embeds is not None:
             raise ValueError("prefix_embeds (vision prefixes) are not "
-                             "supported on the fused ragged step: the "
-                             "flattened token axis carries token ids only")
-        req = GenRequest(next(self._rid), list(prompt), params,
-                         prefix_embeds)
+                             "ported yet: the fused ragged step's token "
+                             "axis carries token ids only, and no engine "
+                             "of the port prefills an embedding prefix")
+        req = GenRequest(next(self._rid), list(prompt), params)
         req.metrics.submit_step = self.steps
         if req.prompt_total + params.max_new > self.max_seq:
             raise ValueError(
@@ -285,17 +296,8 @@ class Engine:
         emitted, so its final logits are discarded and decode simply
         restarts from the last emitted token."""
         req = pa.req
-        if req.prefix_embeds is not None:
-            if pa.start != 0 or pa.n != req.prompt_total:
-                raise KVInvariantError(
-                    "prefix_embeds prefill must cover the whole prompt in "
-                    f"one chunk (got [{pa.start}, {pa.start + pa.n}) of "
-                    f"{req.prompt_total})")
-            tok = req.prompt
-        else:
-            tok = req.chain()[pa.start:pa.start + pa.n]
-        h = self.runner.prefill(req.slot, tok, pa.start, pa.n,
-                                prefix_embeds=req.prefix_embeds)
+        tok = req.chain()[pa.start:pa.start + pa.n]
+        h = self.runner.prefill(req.slot, tok, pa.start, pa.n)
         req.prefilled = pa.start + pa.n
         self._step_prefill_tokens += pa.n
         self.block_mgr.commit(req.rid, req.prefilled)
@@ -571,6 +573,17 @@ class Engine:
         return _drive()
 
     # ---------------------------------------------------- consolidation
+    def n_attn_layers(self, migrated_only: bool = False) -> int:
+        """Attention layers across the pipeline. ``migrated_only`` counts
+        only the layers whose KV crosses the network in a scale-down —
+        every stage except the surviving target (worker 0) — i.e. the
+        `n_layers` the BlockManager's migration_bytes quote refers to."""
+        per_period = sum(1 for m in self.cfg.mixer_pattern if m == "attn")
+        workers = self.runner.workers[1:] if migrated_only \
+            else self.runner.workers
+        return per_period * sum(p1 - p0 for p0, p1 in
+                                (w.periods for w in workers))
+
     def consolidated(self, full_params: dict) -> "Engine":
         """Scale-down: gather the distributed KV/state to one standalone
         worker holding the full model; in-flight requests continue —

@@ -115,16 +115,13 @@ class ModelRunner:
         return self._bt_dev
 
     # ------------------------------------------------------------ compute
-    def prefill(self, slot: int, tokens: Sequence[int], start: int, n: int,
-                prefix_embeds=None):
+    def prefill(self, slot: int, tokens: Sequence[int], start: int, n: int):
         """One prefill forward over rows [start, start+n) of a request's
         chain: a one-segment ragged batch on the paged layout of an
         attention-only model; otherwise the slot's whole prompt at batch 1
         (``start`` is 0 there: no chunking). Returns the last stage's
-        logits at the final row, (1, 1, V)."""
-        if prefix_embeds is not None:
-            raise NotImplementedError("prefix embeddings (VLM prefixes) are "
-                                      "not ported yet")
+        logits at the final row, (1, 1, V). Prefix embeddings (VLM
+        prefixes) are not ported: ``Engine.submit`` refuses them."""
         if self.paged and self._attn_only:
             h = self.forward_batch([(slot, list(tokens), start)])
             return h[0][None, None]

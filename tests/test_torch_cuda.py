@@ -23,7 +23,11 @@ same float32 terms in another order); a bf16 output row (token, head)
 within 2^-7 of its largest |value| plus 1e-4 (one bf16 rounding moves a
 value by at most 2^-8 of it; the rest is float32 order). Pad rows must be
 exactly 0. A WKV6 state from bf16 inputs is float32 arithmetic on the same
-rounded values: rtol 1e-4 (sums over T steps in another order).
+rounded values: rtol 1e-4 (sums over T steps in another order). The WKV6
+kernel splits a head's value columns over blocks, stages its rows in tiles
+of ``STEPS_PER_TILE`` steps and sums a launch of fewer steps over other
+lanes (``row_lanes``), so its cases cross tile boundaries on both sides and
+hold a row's bits equal alone and inside a batch.
 """
 
 import numpy as np
@@ -721,6 +725,60 @@ def test_cuda_wkv6_state_in_place_and_padded_steps(cuda):
     assert torch.equal(s_t, s0)
 
 
+CT = wkv6.STEPS_PER_TILE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [0, 1, CT - 1, CT, CT + 1, 2 * CT + 1, 412])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_cuda_wkv6_tile_boundaries(cuda, hd, t):
+    """float32 from a given state, T on both sides of the staging ring's
+    tile boundaries (no step, a partial last tile, exactly one and two
+    tiles, one step past), every head width: y and the state to 1e-5."""
+    r, k, v, w, u, s0 = _wkv(2, t, 2, hd, seed=7 * t + hd)
+    want_y, want_s = ref.wkv6_reference(r, k, v, w, u, s0)
+    y, s_t = wkv6.wkv6(*(x.to(cuda) for x in (r, k, v, w, u, s0)))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y.cpu(), want_y, **F32_TOL)
+    torch.testing.assert_close(s_t.cpu(), want_s, **F32_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 2 * CT + 5], ids=["decode", "tiles"])
+@pytest.mark.parametrize("hd", [16, 64, 128])
+def test_cuda_wkv6_rows_batch_invariant(cuda, hd, t):
+    """Each batch row's y and final state are the same bits launched alone
+    as inside a batch of 4 (bf16 r/k/v, float32 w, a given state; a decode
+    step, and T past two tiles): a column's sum never meets another
+    row's."""
+    r, k, v, w, u, s0 = (x.to(cuda) for x in _wkv(4, t, 3, hd,
+                                                  seed=13 + hd + t))
+    r, k, v = (x.bfloat16() for x in (r, k, v))
+    y, s_t = wkv6.wkv6(r, k, v, w, u, s0)
+    for b in range(4):
+        one = [x[b:b + 1] for x in (r, k, v, w)]
+        y1, s1 = wkv6.wkv6(*one, u, s0[b:b + 1])
+        torch.cuda.synchronize()
+        assert torch.equal(y1, y[b:b + 1]) and torch.equal(s1, s_t[b:b + 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128])
+def test_cuda_wkv6_in_place_over_column_blocks(cuda, hd):
+    """hd / COLUMNS_PER_BLOCK blocks a head each read their columns of the
+    state before writing them back in place: the same bits as a fresh
+    output, over several tiles."""
+    assert hd // wkv6.COLUMNS_PER_BLOCK > 1
+    r, k, v, w, u, s0 = (x.to(cuda) for x in _wkv(2, 3 * CT + 2, 4, hd,
+                                                  seed=hd))
+    y_new, s_new = wkv6.wkv6(r, k, v, w, u, s0)
+    s = s0.clone()
+    y, out = wkv6.wkv6(r, k, v, w, u, s, out_state=s)
+    torch.cuda.synchronize()
+    assert out is s
+    assert torch.equal(y, y_new) and torch.equal(s, s_new)
+
+
 @pytest.mark.cuda
 def test_cuda_wkv6_wrapper_refuses(cuda):
     r, k, v, w, u, s0 = (x.to(cuda) for x in _wkv(1, 5, 2, 16))
@@ -737,6 +795,9 @@ def test_cuda_wkv6_wrapper_refuses(cuda):
     with pytest.raises(ValueError, match="overlaps"):
         wkv6.wkv6(r, k, v, w, u, big[:512].view(1, 2, 16, 16),
                   out_state=big[8:].view(1, 2, 16, 16))
+    shifted = torch.zeros(r.numel() + 1, device=cuda)[1:].view_as(r)
+    with pytest.raises(ValueError, match="16-byte"):
+        wkv6.wkv6(shifted, k, v, w, u)
 
 
 @pytest.mark.cuda

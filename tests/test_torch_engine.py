@@ -7,7 +7,10 @@ policy, and a 2-stage ServingEndpoint consolidated mid-stream, whose
 recurrence, slot-indexed recurrent states) on both layouts, consolidated
 and with slots reused after idle decode steps. Seeded sampled streams are
 held within the port (its sampler cannot reproduce ``jax.random``): the
-same across 1 vs 2 stages and across consolidation."""
+same across 1 vs 2 stages and across consolidation. The reference's
+KV-lifecycle sanitizer attaches to the port's engine as it is and audits
+it clean; ``n_attn_layers`` counts as the reference's does; and a refused
+``prefix_embeds`` request leaves the engine serving the others."""
 
 import jax
 import numpy as np
@@ -15,6 +18,7 @@ import pytest
 import torch
 
 from conftest import smoke
+from repro.analysis.sanitizer import KVSanitizer
 from repro.models.model import build_model as jax_model
 from repro.serving.api import SamplingParams as JSP
 from repro.serving.endpoint import ServingEndpoint as JEndpoint
@@ -409,3 +413,92 @@ def test_rwkv_refuses_attention_only_options(rwkv):
         with pytest.raises(ValueError,
                            match="attention-only|recurrent|fused"):
             Engine(tcfg, [tparams], **KW, device="cpu", **kw)
+
+
+# ---------------------------------------------------------------------------
+# the reference's engine surface: sanitizer attachment, n_attn_layers, and
+# the prefix_embeds refusal
+# ---------------------------------------------------------------------------
+
+
+def test_reference_sanitizer_audits_the_port_engine_clean(granite,
+                                                          jax_paged):
+    """``KVSanitizer.install`` (the reference's, unchanged) attaches to a
+    paged port engine with the prefix cache and chunked prefill; the smoke
+    prompts, then a second round whose prompts extend the first's (prefix
+    hits: shared and copied-on-write blocks), audit clean through the
+    quiescence check, and the first round's streams are the reference's."""
+    _, _, tcfg, tparams = granite
+    eng = _port(tcfg, [tparams], prefix_cache=True, prefill_chunk=4)
+    assert eng.kv_tier is None
+    san = KVSanitizer.install(eng)
+    assert eng.block_mgr.tracer is san and eng.runner.tracer is san
+    reqs = [eng.submit(p, SamplingParams(max_new=6)) for p in PROMPTS]
+    assert list(eng.queue) == reqs
+    eng.run()
+    assert [list(r.generated) for r in reqs] == jax_paged
+    again = [eng.submit(p + list(r.generated[:2]), SamplingParams(max_new=3))
+             for p, r in zip(PROMPTS, reqs)]
+    eng.run()
+    assert all(r.done for r in again)
+    assert eng.block_mgr.n_cached > 0
+    assert san.events > 0
+    assert not san.check_idle(), san.report()
+    san.raise_if_findings()
+    assert san.report().startswith("kv-sanitizer: clean")
+
+
+@pytest.mark.parametrize("stages", [1, 2])
+@pytest.mark.parametrize("model", ["granite", "rwkv"])
+def test_n_attn_layers_equal_reference(request, model, stages):
+    """Attention mixers per period times the periods of every worker (or
+    of every worker but the first, ``migrated_only``): the reference's
+    count, 0 for the attention-free rwkv."""
+    jcfg, jparams, tcfg, tparams = request.getfixturevalue(model)
+    jm, tm = jax_model(jcfg), Model(tcfg)
+    jsp = ([jparams] if stages == 1 else
+           [jm.slice_stage_params(jparams, 2, i) for i in range(2)])
+    tsp = ([tparams] if stages == 1 else
+           [tm.slice_stage_params(tparams, 2, i) for i in range(2)])
+    jeng = JEngine(jcfg, jsp, **KW)
+    teng = Engine(tcfg, tsp, **KW, device="cpu")
+    for migrated_only in (False, True):
+        want = jeng.n_attn_layers(migrated_only=migrated_only)
+        assert teng.n_attn_layers(migrated_only=migrated_only) == want
+    if model == "rwkv":
+        assert teng.n_attn_layers() == 0
+    else:
+        assert teng.n_attn_layers() == tcfg.n_layers
+        assert teng.n_attn_layers(migrated_only=True) == (
+            0 if stages == 1 else tcfg.n_layers - tcfg.n_layers // 2)
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])
+def test_prefix_embeds_refused_without_admitting(granite, paged):
+    """A non-fused engine of either layout refuses ``prefix_embeds`` at
+    ``submit``, mid-stream, before anything is admitted: no request id is
+    taken, the queues are as they were, and the residents finish with the
+    streams of an engine that never saw the refused request."""
+    _, _, tcfg, tparams = granite
+
+    def serve(refuse):
+        eng = Engine(tcfg, [tparams], **dict(KW, paged=paged), device="cpu")
+        reqs = [eng.submit(p, SamplingParams(max_new=6))
+                for p in PROMPTS[:2]]
+        eng.step()
+        if refuse:
+            before = eng.stats()
+            with pytest.raises(ValueError, match="prefix_embeds"):
+                eng.submit([1, 2], SamplingParams(max_new=2),
+                           prefix_embeds=torch.zeros(2, tcfg.d_model))
+            with pytest.raises(ValueError, match="prefix_embeds"):
+                eng.generate([1, 2], SamplingParams(max_new=2),
+                             prefix_embeds=torch.zeros(2, tcfg.d_model))
+            assert eng.stats() == before
+            assert not eng.queue
+        reqs.append(eng.submit(PROMPTS[2], SamplingParams(max_new=6)))
+        eng.run()
+        assert not eng.has_work()
+        return [r.rid for r in reqs], [list(r.generated) for r in reqs]
+
+    assert serve(True) == serve(False)

@@ -415,6 +415,142 @@ def test_wkv6_out_state_is_written_in_place():
 
 
 # ---------------------------------------------------------------------------
+# the WKV6 kernel's summation order (csrc/wkv6.cu), emulated
+# ---------------------------------------------------------------------------
+
+import re  # noqa: E402
+from pathlib import Path  # noqa: E402
+
+from repro_torch.kernels import wkv6 as twkv  # noqa: E402
+
+
+def _fmaf(a, b, c):
+    """fmaf in float32: the product of two float32 values is exact in
+    float64, and the sum is rounded to float32 once more."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _wkv6_split(r, k, v, w, u, s0=None, jc=twkv.COLUMNS_PER_BLOCK, ig=None):
+    """The WKV6 kernel's arithmetic in plain torch. The value columns go in
+    groups of ``jc`` (a block each); in a group, lane g of a column holds
+    key rows g, g + ig, ... (``ig`` the kernel's ``row_lanes(T)`` unless
+    given) and forms its partial y as fmaf(r_i, fmaf(u_i k_i, v_j, S_ij),
+    acc) over its rows in row order; the ig partials are added as the
+    shuffle tree adds them (xor 1, then 2, 4, ...: the kernel's per-step
+    tree and its per-tile reduce-scatter give these same sums), and lane
+    0's sum is y. Each state entry becomes fmaf(d_i, S_ij, k_i v_j), d_i =
+    exp(-exp(w_i)). Returns (y in r's dtype, the final state)."""
+    ig = twkv.row_lanes(r.shape[1]) if ig is None else ig
+    b, t, h, n = r.shape
+    f32 = torch.float32
+    rf, kf, vf, wf = (x.to(f32) for x in (r, k, v, w))
+    uk = u.to(f32)[None, None] * kf
+    d = torch.exp(-torch.exp(wf))
+    S = (torch.zeros(b, h, n, n) if s0 is None else s0.to(f32).clone())
+    y = torch.empty(b, t, h, n)
+    jb = min(jc, n)
+
+    def lanes(x):                      # (B,H,n) -> (B,H,n/ig,ig,1): [m, g]
+        return x.reshape(b, h, n // ig, ig, 1)
+
+    for j0 in range(0, n, jb):
+        cols = slice(j0, j0 + jb)
+        sg = S[..., cols].reshape(b, h, n // ig, ig, jb)   # [m, g, column]
+        for step in range(t):
+            vj = vf[:, step, :, cols][:, :, None, None]     # (B,H,1,1,jb)
+            rs, uks, ks, ds = (lanes(x[:, step]) for x in (rf, uk, kf, d))
+            acc = torch.zeros(b, h, ig, jb)
+            for m in range(n // ig):
+                acc = _fmaf(rs[:, :, m], _fmaf(uks[:, :, m], vj[:, :, 0],
+                                               sg[:, :, m]), acc)
+            off = 1
+            while off < ig:
+                acc = acc + acc[:, :, [g ^ off for g in range(ig)]]
+                off *= 2
+            y[:, step, :, cols] = acc[:, :, 0]
+            sg = _fmaf(ds, sg, ks * vj)
+        S[..., cols] = sg.reshape(b, h, n, jb)
+    return y.to(r.dtype), S
+
+
+@pytest.mark.parametrize("state", [True, False], ids=["state", "zero"])
+@pytest.mark.parametrize("t", [1, 17, 100])
+@pytest.mark.parametrize("n", [16, 64])
+def test_wkv6_split_order_matches_plain_and_jax(n, t, state):
+    """The kernel's order of y's sum (row groups over ``row_lanes(T)``
+    lanes: 8 at T 1, 16 at T 17 and 100; partials added in the shuffles'
+    order) against the plain version and the JAX package's wkv6 (its
+    oracle and its Pallas kernel in interpret mode): float32 y to 1e-5, the
+    state to rtol 1e-4."""
+    args = _wkv(2, t, 2, n, seed=3 * t + n, state=state)
+    got_y, got_s = _wkv6_split(*map(_t, args))
+    jargs = [None if a is None else jnp.asarray(a) for a in args]
+    wants = [tref.wkv6_reference(*map(_t, args)),
+             jref.wkv6_reference(*jargs),
+             j_wkv6(*jargs, chunk=16, interpret=True)]
+    for wy, ws in wants:
+        np.testing.assert_allclose(got_y.numpy(), _np(wy), **TOL)
+        np.testing.assert_allclose(got_s.numpy(), _np(ws), atol=1e-5,
+                                   rtol=1e-4)
+
+
+@pytest.mark.parametrize("t", [1, 23])
+def test_wkv6_split_bits_ignore_column_groups_and_batch(t):
+    """A column's y and state depend on its own lanes alone: any column
+    group width, and a row served alone or inside a batch, give the same
+    bits; the state's bits do not depend on the lanes either."""
+    args = list(map(_t, _wkv(4, t, 2, 64, seed=11)))
+    y, s = _wkv6_split(*args)
+    for jc in (8, 32):
+        y2, s2 = _wkv6_split(*args, jc=jc)
+        assert torch.equal(y, y2) and torch.equal(s, s2)
+    one = [x[2:3] for x in args[:4]] + [args[4], args[5][2:3]]
+    y1, s1 = _wkv6_split(*one)
+    assert torch.equal(y1, y[2:3]) and torch.equal(s1, s[2:3])
+    _, s3 = _wkv6_split(*args, ig=4)
+    assert torch.equal(s3, s)
+
+
+def test_wkv6_split_bf16_rows_hold_the_row_limit():
+    """At rwkv6-1.6b's head (hd 64) over a 412-step prefill from a random
+    state, bf16 r/k/v and float32 w: the emulated kernel's y, rounded to
+    bf16, keeps every (token, head) row within 2^-7 of its largest |value|
+    plus 1e-4 of the float32 plain version, and the state within 1e-4 of
+    its largest |value|."""
+    r, k, v, w, u, s0 = (_t(a) for a in _wkv(1, 412, 2, 64, seed=12))
+    r, k, v = (x.to(torch.bfloat16) for x in (r, k, v))
+    y, s = _wkv6_split(r, k, v, w, u, s0)
+    want_y, want_s = tref.wkv6_reference(r.float(), k.float(), v.float(), w,
+                                         u, s0)
+    assert y.dtype == torch.bfloat16
+    _rows_within_limit(y.float(), want_y)
+    assert float((s - want_s).abs().max()) <= 1e-4 * float(
+        want_s.abs().max())
+
+
+def test_wkv6_constants_match_the_source():
+    """The wrapper's STEPS_PER_TILE, COLUMNS_PER_BLOCK, ROW_LANES and
+    SHORT_ROW_LANES are the kernel's CT, JC, IG and IG_SHORT, which the
+    card tests and the emulation above read; ``row_lanes`` picks as the
+    kernel's launcher does (whole tiles at T >= CT)."""
+    src = (Path(twkv.__file__).resolve().parents[1] / "csrc"
+           / "wkv6.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+
+    assert const("CT") == twkv.STEPS_PER_TILE
+    assert const("JC") == twkv.COLUMNS_PER_BLOCK
+    assert const("IG") == twkv.ROW_LANES
+    assert const("IG_SHORT") == twkv.SHORT_ROW_LANES
+    assert "if (T_ >= CT)\n    return launch_as<T, TW, HD, IG, NJ>" in src
+    ct = twkv.STEPS_PER_TILE
+    assert [twkv.row_lanes(t) for t in (1, ct - 1, ct, 412)] == [
+        twkv.SHORT_ROW_LANES, twkv.SHORT_ROW_LANES, twkv.ROW_LANES,
+        twkv.ROW_LANES]
+
+
+# ---------------------------------------------------------------------------
 # the tensor-core bodies' rounding points, emulated in plain torch
 # ---------------------------------------------------------------------------
 
