@@ -11,6 +11,7 @@ NVIDIA H100.
                                      # kernels at the engine's decode step
     python3 chip_smoke.py --wkv6-shape        # build, then the wkv6 kernel
                                      # at rwkv6-1.6b's prefill and decode
+    python3 chip_smoke.py --tier      # build, then phase 7 alone
 
 Run from the root of a checkout. Phases:
 
@@ -96,6 +97,25 @@ Run from the root of a checkout. Phases:
    ``deploy(..., store_dir=...)`` (inside the checkout, deleted after) is
    cold-deployed (``params=None``) by a second frontend, which must serve
    the memory tier's streams on the same weights.
+7. KV tiers, routing and the sanitizer (``TIER``): full-width, full-depth
+   granite-3-8b (bf16, paged, block 16, random weights from a seeded
+   generator) on two replicas of ``max_batch`` 2 and ``max_seq`` 512 (66
+   blocks each) that share one ``KVBlockStore`` (24 host blocks, then the
+   segment tier) and one ``Router("kv_affinity")``; replica A runs the
+   KV-lifecycle sanitizer (strict) and dispatch's kernel contract checks,
+   B neither. Prompts of 300 tokens: two served twice (the second a warm
+   prefix hit), six more churn A's pool so that evictions spill and
+   demote, the first is served again on A (restored from the tiers), the
+   second and the churn prompt with the most host-tier blocks go through
+   the router to B (restored from both tiers). Restored streams must equal
+   the warm ones exactly, the same prompt on A and on B must give the same
+   stream, every block spilled or restored must move 2,621,440 B, the
+   sanitizer must find nothing, and every ragged and paged decode launch
+   must take the tensor-core body. A fused int8 replica with its own tier
+   repeats the first three steps (1,392,640 B a block). Reported: cold vs
+   warm streams, the wall GB/s of ``read_pages`` and ``write_pages`` of 16
+   blocks, the decode-step p50 of A and B (the sanitizer's and the checks'
+   cost) and each check's cost a call, the router's decisions.
 
 Any failed check raises, and the script exits nonzero without a result
 line. On success the second-to-last line is the ``kernels`` JSON (every
@@ -1541,6 +1561,320 @@ def disk_tier_phase(torch, prompts):
                               "streams_equal": True}))
 
 
+# ---------------------------------------------------------------------------
+# phase 7: multi-tier KV spill/restore, KV-aware routing, the sanitizer
+# ---------------------------------------------------------------------------
+
+TIER_PROMPT = 300           # tokens a prompt: 18 full blocks of 16
+TIER_NEW = 4
+TIER_CHURN = 6              # distinct prompts pushed through replica A
+TIER_HOST_BLOCKS = 24       # the host tier's budget; the rest demotes
+TIER_KW = dict(max_batch=2, max_seq=512, block_size=16, paged=True,
+               prefix_cache=True)          # 2 x (512 / 16 + 1) = 66 blocks
+TIER_BLOCK_BYTES = {None: 2_621_440, "int8": 1_392_640}   # 16 x B/tok x 40
+TIER_TURNS, TIER_TURN_NEW = 3, 16   # A and B in turns: the checks' cost
+
+
+def tier_prompts(vocab):
+    """P1, P2 and the churn prompts C1.. of the tier phase, from a seed."""
+    import numpy as np
+    rng = np.random.RandomState(7)
+    names = ["P1", "P2"] + [f"C{i}" for i in range(1, TIER_CHURN + 1)]
+    return {n: rng.randint(0, vocab, TIER_PROMPT).tolist() for n in names}
+
+
+def serve_one(torch, ep, prompt, sanitize, steps=None, max_new=TIER_NEW):
+    """Serve one request on ``ep`` to its end, with dispatch's kernel
+    contract checks on while ``sanitize``; appends each step's (seconds,
+    prefill tokens, events) to ``steps`` where one is given, on the host
+    clock around a synchronised step. Returns the request's stream."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.api import SamplingParams
+
+    def sync():
+        if ep.engine.device.type == "cuda":
+            torch.cuda.synchronize()
+
+    ops.set_sanitize_mode(sanitize)
+    try:
+        req = ep.submit(prompt, SamplingParams(max_new=max_new))
+        while ep.has_work():
+            sync()
+            t0 = time.perf_counter()
+            out = ep.step()
+            sync()
+            if steps is not None:
+                steps.append((time.perf_counter() - t0, out.prefill_tokens,
+                              len(out.events)))
+    finally:
+        ops.set_sanitize_mode(False)
+    return list(req.generated)
+
+
+def restores_by_tier(tier):
+    """A tier's restores so far, by the tier each came from (a restore's
+    flow is capped at its source tier's bandwidth)."""
+    host = sum(f.cap == tier.host_bw for f in tier.restore_flows)
+    return {"host": host, "segment": len(tier.restore_flows) - host}
+
+
+def check_tier_bytes(label, tier, block):
+    """Every spilled and restored block moved exactly ``block`` bytes."""
+    s = tier.stats()
+    if (s["spilled_bytes"] != s["spills"] * block
+            or s["restored_bytes"] != s["restores"] * block):
+        raise AssertionError(f"{label}: tier bytes {s} are not "
+                             f"{block} B a block")
+    return s
+
+
+def check_sanitizer(label, ep):
+    san = ep.engine.sanitizer
+    san.check_idle()
+    if san.findings:
+        raise AssertionError(f"{label}: {san.report()}")
+    return san.events
+
+
+def page_rates(torch, runner, n_blocks, block):
+    """Wall GB/s of ``read_pages`` (card -> host) and ``write_pages`` (host
+    -> card) of ``n_blocks`` blocks, synchronised around each."""
+    blocks = list(range(n_blocks))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    payloads = [runner.read_pages(b) for b in blocks]
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for b, p in zip(blocks, payloads):
+        runner.write_pages(b, p)
+    torch.cuda.synchronize()
+    write_s = time.perf_counter() - t0
+    nbytes = n_blocks * block
+    return {"blocks": n_blocks, "bytes": nbytes,
+            "spill_read_s": read_s, "spill_GB_per_s": nbytes / read_s / 1e9,
+            "restore_write_s": write_s,
+            "restore_GB_per_s": nbytes / write_s / 1e9}
+
+
+def kernelcheck_cost(torch, cfg, n_blocks, reps=200):
+    """Host microseconds a call of each contract check takes on card
+    tensors at a decode step's shapes of the tier replicas (batch 2, a
+    table of 33 blocks over a 67-page bf16 pool), its host reads and
+    synchronisation included."""
+    from repro_torch.analysis import kernelcheck
+    from repro_torch.kernels.ragged_attention import TILE_Q
+    dev = "cuda"
+    hd, hkv, hq = cfg.head_dim, cfg.n_kv_heads, cfg.n_heads
+    nb = TIER_KW["max_seq"] // TIER_KW["block_size"] + 1
+    pages = torch.zeros(n_blocks + 1, TIER_KW["block_size"], hkv, hd,
+                        dtype=torch.bfloat16, device=dev)
+    tables = torch.zeros(2, nb, dtype=torch.int32, device=dev)
+    kv_len = torch.tensor([300, 301], dtype=torch.int32, device=dev)
+    q = torch.zeros(2, 1, hq, hd, dtype=torch.bfloat16, device=dev)
+    qr = torch.zeros(2 * TILE_Q, hq, hd, dtype=torch.bfloat16, device=dev)
+    row = torch.repeat_interleave(torch.arange(2, dtype=torch.int32,
+                                               device=dev), TILE_Q)
+    pos = torch.full((2 * TILE_Q,), -1, dtype=torch.int32, device=dev)
+    out = {}
+    for name, fn in (
+            ("check_paged_decode_us", lambda: kernelcheck.check_paged_decode(
+                q, pages, pages, tables, kv_len)),
+            ("check_ragged_paged_us", lambda: kernelcheck.check_ragged_paged(
+                qr, pages, pages, tables, row, pos))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        out[name] = (time.perf_counter() - t0) / reps * 1e6
+    return out
+
+
+def tier_phase(torch):
+    """Multi-tier KV spill/restore and KV-aware routing on the paged engine,
+    with the KV-lifecycle sanitizer and the kernel contract checks on.
+    granite-3-8b at full width and depth, bf16, paged, block 16, on the
+    card; weights drawn once from a seeded generator. Replica A (sanitized, strict) and
+    replica B (not) share the weights, one ``KVBlockStore`` (24 host
+    blocks, then the segment tier) and one ``Router("kv_affinity")``:
+
+    1. P1 and P2 on A, each twice (the second is a warm prefix hit: W1, W2);
+    2. six distinct prompts churn A's 66-block pool: 144 blocks pass
+       through it, evictions spill to the host tier, which demotes its
+       overflow to the segment tier;
+    3. P1 on A again: restored from the tiers, its stream must be W1;
+    4. P2 through the router, which picks B: B restores A's spilled blocks
+       and must serve W2 (the same prompt on the sanitized and the plain
+       replica);
+    5. the churn prompt with the most blocks in the host tier (those left
+       A's pool during step 3) through the router, which picks B: B
+       restores them from the host tier and must serve A's stream;
+    6. P2 with 16 new tokens on A, then on B, three times over: their
+       decode steps in turns give the sanitizer's and the checks' cost.
+
+    Spilled and restored bytes are held to 2,621,440 B a block, the
+    sanitizer to no finding, every ragged and paged decode launch to the
+    tensor-core body. A fused int8 replica with its own tier repeats 1-3
+    (1,392,640 B a block). Reported, not asserted: cold vs warm streams,
+    the host <-> card rates of ``read_pages``/``write_pages``, the decode
+    step p50 of A and B in the turns of step 6 (their steps over the whole
+    phase come from different requests, so only the turns compare them),
+    what each contract check costs, the router's decisions."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.attention import paged_kv_token_bytes
+    from repro_torch.models.model import Model
+    from repro_torch.router import KVBlockStore, Router
+    from repro_torch.serving.endpoint import ServingEndpoint
+    from repro_torch.serving.engine import Engine
+
+    device = "cuda"
+    cfg = get_config("granite-3-8b")
+    model = Model(cfg)
+    t_phase = time.perf_counter()
+    params = model.init(torch.Generator(device=device).manual_seed(0),
+                        device=device)
+    prompts = tier_prompts(cfg.vocab)
+
+    def replica(tier, sanitize, **kw):
+        ep = ServingEndpoint(Engine(cfg, [params], **TIER_KW, kv_tier=tier,
+                                    sanitize=sanitize, device=device, **kw))
+        if sanitize:
+            ep.engine.sanitizer.strict = True    # raise at the first finding
+        return ep
+
+    def block_bytes(ep, kv_dtype=None):
+        eng = ep.engine
+        return (eng.block_mgr.block_size * paged_kv_token_bytes(cfg, kv_dtype)
+                * eng.n_attn_layers())
+
+    def must_equal(label, got, want):
+        if got != want:
+            raise AssertionError(f"{label}: {got} != {want}")
+
+    # -- bf16: A (sanitized) and B behind one tier and one router
+    tier = KVBlockStore(host_capacity_blocks=TIER_HOST_BLOCKS)
+    a, b = replica(tier, True), replica(tier, False)
+    block = block_bytes(a)
+    must_equal("bf16 bytes a block", block, TIER_BLOCK_BYTES[None])
+    router = Router("kv_affinity", kv_tier=tier)
+    router.register("A", a)
+    router.register("B", b)
+    s = {}
+    ops.reset_launch_counts()
+    for n in ("P1", "P2"):                                     # 1.
+        s[f"{n} cold"] = serve_one(torch, a, prompts[n], True)
+        s[f"{n} warm"] = serve_one(torch, a, prompts[n], True)
+    for i in range(1, TIER_CHURN + 1):                         # 2.
+        s[f"C{i}"] = serve_one(torch, a, prompts[f"C{i}"], True)
+    if not (tier.spills and tier.demotions):
+        raise AssertionError(f"the churn spilled or demoted nothing: "
+                             f"{tier.stats()}")
+    s["P1 restored"] = serve_one(torch, a, prompts["P1"], True)   # 3.
+    churn = [f"C{i}" for i in range(1, TIER_CHURN + 1)]
+    hot = max(churn, key=lambda n: [
+        tier.tier_of(h) for h in router.residency.chain_hashes(
+            "A", prompts[n])].count("host"))
+    routed = {}
+    for n in ("P2", hot):                                      # 4., 5.
+        d = router.route(prompts[n])
+        routed[n] = d
+        if d.name != "B":
+            raise AssertionError(f"the router sent {n} to {d.name}: "
+                                 f"{d}")
+        s[f"{n} on B"] = serve_one(torch, b, prompts[n], False)
+    counts = ops.launch_counts()
+    for k in ("ragged_paged_attention", "paged_decode_attention"):
+        if counts[k] <= 0:
+            raise AssertionError(f"{k} never launched on the tier path")
+    bodies = check_bodies(counts, "the tier path")
+    by_tier = restores_by_tier(tier)
+    if not (by_tier["host"] and by_tier["segment"]):
+        raise AssertionError(f"restores by tier {by_tier}: want both")
+    stats = check_tier_bytes("bf16", tier, block)
+    must_equal("P1 restored vs warm", s["P1 restored"], s["P1 warm"])
+    must_equal("P2 on B vs warm on A", s["P2 on B"], s["P2 warm"])
+    must_equal(f"{hot} on B vs on A", s[f"{hot} on B"], s[hot])
+    # 6. the sanitizer's and the checks' cost: the same request on A and
+    # on B in turns, so that both see the same host
+    turns = {"A": [], "B": []}
+    for _ in range(TIER_TURNS):
+        for name, ep, on in (("A", a, True), ("B", b, False)):
+            serve_one(torch, ep, prompts["P2"], on, turns[name],
+                      max_new=TIER_TURN_NEW)
+    events = check_sanitizer("replica A", a)
+    log(f"  bf16 tier: {stats}; restores by tier {by_tier}; launches "
+        f"{counts}; A's sanitizer clean over {events} events")
+
+    # -- int8: a fused replica with its own tier repeats 1-3
+    tier8 = KVBlockStore(host_capacity_blocks=TIER_HOST_BLOCKS)
+    q8 = replica(tier8, True, kv_dtype="int8", fused=True)
+    block8 = block_bytes(q8, "int8")
+    must_equal("int8 bytes a block", block8, TIER_BLOCK_BYTES["int8"])
+    s8 = {}
+    ops.reset_launch_counts()
+    for n in ("P1", "P2"):
+        s8[f"{n} cold"] = serve_one(torch, q8, prompts[n], True)
+        s8[f"{n} warm"] = serve_one(torch, q8, prompts[n], True)
+    for i in range(1, TIER_CHURN + 1):
+        s8[f"C{i}"] = serve_one(torch, q8, prompts[f"C{i}"], True)
+    s8["P1 restored"] = serve_one(torch, q8, prompts["P1"], True)
+    counts8 = ops.launch_counts()
+    if counts8["ragged_paged_attention_q8"] <= 0:
+        raise AssertionError("the int8 ragged body never launched")
+    bodies8 = check_bodies(counts8, "the int8 tier path")
+    stats8 = check_tier_bytes("int8", tier8, block8)
+    if not (tier8.spills and tier8.demotions and tier8.restores):
+        raise AssertionError(f"int8 tier {stats8}")
+    must_equal("int8 P1 restored vs warm", s8["P1 restored"], s8["P1 warm"])
+    events8 = check_sanitizer("the int8 replica", q8)
+    log(f"  int8 tier: {stats8}; restores by tier "
+        f"{restores_by_tier(tier8)}; launches {counts8}; sanitizer clean "
+        f"over {events8} events")
+    serve_s = time.perf_counter() - t_phase
+
+    cold_warm = {"bf16": {n: s[f"{n} cold"] == s[f"{n} warm"]
+                          for n in ("P1", "P2")},
+                 "int8": {n: s8[f"{n} cold"] == s8[f"{n} warm"]
+                          for n in ("P1", "P2")}}
+    decode = {k: step_stats(v)["decode_step_ms_p50"]
+              for k, v in (("A in turns", turns["A"]),
+                           ("B in turns", turns["B"]))}
+    rec = {"block_bytes": {"bf16": block, "int8": block8},
+           "tier_bf16": stats, "restores_by_tier_bf16": by_tier,
+           "tier_int8": stats8,
+           "restores_by_tier_int8": restores_by_tier(tier8),
+           "launches": counts, "launches_int8": counts8,
+           "bodies": bodies, "bodies_int8": bodies8,
+           "sanitizer_events": {"A": events, "int8": events8},
+           "sanitizer_findings": len(a.engine.sanitizer.findings)
+           + len(q8.engine.sanitizer.findings),
+           "restored_equals_warm": s["P1 restored"] == s["P1 warm"]
+           and s8["P1 restored"] == s8["P1 warm"],
+           "cold_equals_warm": cold_warm,
+           "decode_step_ms_p50": decode,
+           "router": router.stats(),
+           "routed": {n: {"to": d.name, "warm_blocks": d.warm_blocks,
+                          "restorable_blocks": d.restorable_blocks,
+                          "score": d.score}
+                      for n, d in routed.items()},
+           "serve_s": serve_s,
+           "page_rates": page_rates(torch, b.engine.runner, 16, block),
+           "kernelcheck_cost": kernelcheck_cost(
+               torch, cfg, b.engine.block_mgr.n_blocks)}
+    log(f"  read_pages / write_pages of 16 blocks (wall, synchronised): "
+        f"{rec['page_rates']['spill_GB_per_s']:.2f} GB/s card -> host, "
+        f"{rec['page_rates']['restore_GB_per_s']:.2f} GB/s host -> card")
+    log(f"  decode step p50 ms in turns on one request: A (sanitizer + "
+        f"kernelcheck) {decode['A in turns']:.2f}, B (neither) "
+        f"{decode['B in turns']:.2f} ({len(turns['A'])} and "
+        f"{len(turns['B'])} steps); cold == warm: {cold_warm}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    log("TIER " + json.dumps(rec))
+    return rec
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -1581,6 +1915,9 @@ def main():
                     help="build, then only check and time the wkv6 kernel "
                          "at rwkv6-1.6b's prefill and decode shapes (no "
                          "result line)")
+    ap.add_argument("--tier", action="store_true",
+                    help="build, then only the KV tier, routing and "
+                         "sanitizer phase (no result line)")
     args = ap.parse_args()
 
     import torch
@@ -1630,6 +1967,11 @@ def main():
         wkv6_checks(torch, 20, torch.empty(64 << 20, dtype=torch.uint8,
                                            device="cuda"))
         return
+    if args.tier:
+        log("== KV tiers, routing and the sanitizer (granite-3-8b, full "
+            "width and depth, paged)")
+        tier_phase(torch)
+        return
 
     log("== kernels vs plain versions")
     rows = kernel_phase(torch, args.quick)
@@ -1656,6 +1998,11 @@ def main():
         log("== disk tier: cold deploy from an on-disk store (full width, "
             "4 layers)")
         disk_tier_phase(torch, prompts)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log("== KV tiers, routing and the sanitizer (granite-3-8b, full "
+            "width and depth, paged)")
+        tier_phase(torch)
 
     kernels = []
     for name, source, replaces in KERNELS:

@@ -70,25 +70,23 @@ def _count(name, body):
     BODY_LAUNCHES[f"{name}/{_build.BODIES[body.value]}"] += 1
 
 
-def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_len):
-    """q (B,1,Hq,hd); pages (N,bs,Hkv,hd); block_tables (B,nb) int32 page
-    ids; kv_len (B,) int32 -> (B,1,Hq,hd) in q's dtype. Launches the CUDA
-    kernel on the current stream; raises on anything it does not take."""
-    _build.check_cuda("paged_decode_attention", q=q, k_pages=k_pages,
-                      v_pages=v_pages, block_tables=block_tables,
-                      kv_len=kv_len)
+def check_paged_operands(q, k_pages, v_pages, block_tables, kv_len):
+    """Raises ``ValueError`` on an operand the paged kernel does not take:
+    its dtypes, head dims, shapes, int32 indices, and starts on 16 bytes.
+    Reads shapes and pointers only, never device data;
+    ``analysis/kernelcheck.py`` applies the same rules."""
     b, one, hq, hd = q.shape
-    n_pages, bs, hkv, hd_k = k_pages.shape
-    nb = block_tables.shape[1]
+    hkv, hd_k = k_pages.shape[2:]
     if one != 1:
         raise ValueError(f"one query token per sequence, got {one}")
     if q.dtype not in Q_DTYPES:
-        raise ValueError(f"q dtype {q.dtype} not in {Q_DTYPES}")
+        raise ValueError(f"q dtype {q.dtype}: the kernel takes {Q_DTYPES}")
     if k_pages.dtype not in PAGE_DTYPES or v_pages.dtype != k_pages.dtype:
-        raise ValueError(f"page dtypes {k_pages.dtype}/{v_pages.dtype}")
+        raise ValueError(f"page dtypes {k_pages.dtype}/{v_pages.dtype}: "
+                         f"the kernel takes {PAGE_DTYPES}")
     if hd not in HEAD_DIMS or hd_k != hd or v_pages.shape != k_pages.shape:
         raise ValueError(f"head_dim {hd} (pages {tuple(k_pages.shape)}): "
-                         f"want one of {HEAD_DIMS}")
+                         f"the kernel takes head dims {HEAD_DIMS}")
     if hq % hkv:
         raise ValueError(f"Hq={hq} not a multiple of Hkv={hkv}")
     for k, a in (("block_tables", block_tables), ("kv_len", kv_len)):
@@ -98,6 +96,19 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_len):
         raise ValueError("block_tables must be (B, nb), kv_len (B,)")
     _build.check_aligned("paged_decode_attention", k_pages=k_pages,
                          v_pages=v_pages)
+
+
+def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_len):
+    """q (B,1,Hq,hd); pages (N,bs,Hkv,hd); block_tables (B,nb) int32 page
+    ids; kv_len (B,) int32 -> (B,1,Hq,hd) in q's dtype. Launches the CUDA
+    kernel on the current stream; raises on anything it does not take."""
+    _build.check_cuda("paged_decode_attention", q=q, k_pages=k_pages,
+                      v_pages=v_pages, block_tables=block_tables,
+                      kv_len=kv_len)
+    check_paged_operands(q, k_pages, v_pages, block_tables, kv_len)
+    b, _, hq, hd = q.shape
+    bs, hkv = k_pages.shape[1:3]
+    nb = block_tables.shape[1]
     out = torch.empty_like(q)
     n_split = split_count(nb * bs)
     ws = _workspace(q, n_split)

@@ -9,10 +9,17 @@ Each kernel counts its launches (``launch_counts``), so a run can show
 that its attention and its recurrences went through the kernels; the
 attention kernels, each with a tensor-core and a CUDA-core body, also count
 each body's launches (``body_counts``).
+
+Sanitize mode (``REPRO_SANITIZE=1``, read at import, or
+``set_sanitize_mode``) runs ``analysis/kernelcheck.py``'s contract checks
+before every paged decode and ragged launch, on the CPU and on the card
+alike; on the card their value checks read the index tensors on the host.
+With the mode off dispatch is unchanged and reads no device data.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict
 
 from repro_torch.kernels import decode_attention as _da
@@ -24,6 +31,20 @@ from repro_torch.kernels import wkv6 as _wkv
 _COUNTS = (_ra.LAUNCHES, _da.LAUNCHES, _fa.LAUNCHES, _wkv.LAUNCHES)
 _BODY_COUNTS = (_ra.BODY_LAUNCHES, _da.BODY_LAUNCHES,
                 _fa.BODY_LAUNCHES)
+
+_SANITIZE = os.environ.get("REPRO_SANITIZE", "0").lower() \
+    not in ("", "0", "off", "false")
+
+
+def set_sanitize_mode(on: bool):
+    global _SANITIZE
+    _SANITIZE = bool(on)
+
+
+def sanitize_mode() -> bool:
+    """Correctness tooling on (analysis/): the engines' KV-lifecycle
+    sanitizer by default and the kernel contract checks at dispatch."""
+    return _SANITIZE
 
 
 def _on_card(t) -> bool:
@@ -76,6 +97,10 @@ def decode_attention(q, k_cache, v_cache, kv_len):
 def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_len):
     """Single-token decode against a paged KV pool. q (B,1,Hq,hd);
     pages (N,bs,Hkv,hd); block_tables (B,nb) page ids; kv_len (B,)."""
+    if _SANITIZE:
+        from repro_torch.analysis import kernelcheck
+        kernelcheck.check_paged_decode(q, k_pages, v_pages, block_tables,
+                                       kv_len)
     if _on_card(q):
         return _da.paged_decode_attention(q, k_pages, v_pages, block_tables,
                                           kv_len)
@@ -92,6 +117,11 @@ def ragged_paged_attention(q, k_pages, v_pages, tables, row, pos, *,
     of ``ragged_attention.TILE_Q`` and row is constant over each tile. ``kv_quant``
     carries int8 pools' scale/zero leaves (dequant fused into the K/V
     loads)."""
+    if _SANITIZE:
+        from repro_torch.analysis import kernelcheck
+        kernelcheck.check_ragged_paged(q, k_pages, v_pages, tables, row,
+                                       pos, kv_quant=kv_quant,
+                                       tile_q=_ra.TILE_Q)
     if _on_card(q):
         return _ra.ragged_paged_attention(q, k_pages, v_pages, tables, row,
                                           pos, kv_quant=kv_quant)

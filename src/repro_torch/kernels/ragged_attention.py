@@ -41,8 +41,42 @@ BODY_LAUNCHES = {f"{name}/{body}": 0 for name in LAUNCHES
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_QUANT_LEAVES = ("k_scale", "k_zero", "v_scale", "v_zero")   # C order
 _ARGTYPES = ([_P] * 11 + [_I] * 7 + [ctypes.c_float, _I, _I, _P,
                                      ctypes.POINTER(_I)])
+
+
+def check_operands(q, k_pages, v_pages, tables, row, pos, kv_quant=None):
+    """Raises ``ValueError`` on an operand the kernel does not take: its
+    dtypes, head dims, shapes, int32 indices, the int8 pages' scale/zero
+    pools, and starts on 16 bytes. Reads shapes and pointers only, never
+    device data; ``analysis/kernelcheck.py`` applies the same rules."""
+    t, hq, hd = q.shape
+    hkv, hd_k = k_pages.shape[2:]
+    if q.dtype not in Q_DTYPES:
+        raise ValueError(f"q dtype {q.dtype}: the kernel takes {Q_DTYPES}")
+    if k_pages.dtype not in PAGE_DTYPES or v_pages.dtype != k_pages.dtype:
+        raise ValueError(f"page dtypes {k_pages.dtype}/{v_pages.dtype}: "
+                         f"the kernel takes {PAGE_DTYPES}")
+    if hd not in HEAD_DIMS or hd_k != hd or v_pages.shape != k_pages.shape:
+        raise ValueError(f"head_dim {hd} (pages {tuple(k_pages.shape)}): "
+                         f"the kernel takes head dims {HEAD_DIMS}")
+    if hq % hkv or t % TILE_Q:
+        raise ValueError(f"Hq={hq} Hkv={hkv} T={t} TILE_Q={TILE_Q}")
+    for k, a in (("tables", tables), ("row", row), ("pos", pos)):
+        if a.dtype != torch.int32:
+            raise ValueError(f"{k} must be int32, got {a.dtype}")
+    if row.shape != (t,) or pos.shape != (t,) or tables.dim() != 2:
+        raise ValueError("row/pos must be (T,), tables (B, nb)")
+    if (k_pages.dtype == torch.int8) != (kv_quant is not None):
+        raise ValueError("int8 pages need kv_quant scale/zero pools, and "
+                         "only int8 pages take them")
+    for k in _QUANT_LEAVES if kv_quant is not None else ():
+        a = kv_quant[k]
+        if a.dtype != torch.float32 or a.shape != k_pages.shape[:-1]:
+            raise ValueError(f"{k}: want f32 {tuple(k_pages.shape[:-1])}")
+    _build.check_aligned("ragged_paged_attention", k_pages=k_pages,
+                         v_pages=v_pages)
 
 
 def ragged_paged_attention(q, k_pages, v_pages, tables, row, pos, *,
@@ -55,38 +89,13 @@ def ragged_paged_attention(q, k_pages, v_pages, tables, row, pos, *,
     quant = kv_quant or {}
     _build.check_cuda("ragged_paged_attention", q=q, k_pages=k_pages,
                       v_pages=v_pages, tables=tables, row=row, pos=pos,
-                      **{k: quant.get(k) for k in ("k_scale", "k_zero",
-                                                   "v_scale", "v_zero")})
+                      **{k: quant.get(k) for k in _QUANT_LEAVES})
+    check_operands(q, k_pages, v_pages, tables, row, pos, kv_quant)
     t, hq, hd = q.shape
-    n_pages, bs, hkv, hd_k = k_pages.shape
+    bs, hkv = k_pages.shape[1:3]
     nb = tables.shape[1]
-    if q.dtype not in Q_DTYPES:
-        raise ValueError(f"q dtype {q.dtype} not in {Q_DTYPES}")
-    if k_pages.dtype not in PAGE_DTYPES or v_pages.dtype != k_pages.dtype:
-        raise ValueError(f"page dtypes {k_pages.dtype}/{v_pages.dtype}")
-    if hd not in HEAD_DIMS or hd_k != hd or v_pages.shape != k_pages.shape:
-        raise ValueError(f"head_dim {hd} (pages {tuple(k_pages.shape)}): "
-                         f"want one of {HEAD_DIMS}")
-    if hq % hkv or t % TILE_Q:
-        raise ValueError(f"Hq={hq} Hkv={hkv} T={t} TILE_Q={TILE_Q}")
-    for k, a in (("tables", tables), ("row", row), ("pos", pos)):
-        if a.dtype != torch.int32:
-            raise ValueError(f"{k} must be int32, got {a.dtype}")
-    if row.shape != (t,) or pos.shape != (t,) or tables.dim() != 2:
-        raise ValueError("row/pos must be (T,), tables (B, nb)")
-    is_q8 = k_pages.dtype == torch.int8
-    if is_q8 != (kv_quant is not None):
-        raise ValueError("int8 pages need kv_quant scale/zero pools, and "
-                         "only int8 pages take them")
-    ptrs = [None] * 4
-    if is_q8:
-        for i, k in enumerate(("k_scale", "k_zero", "v_scale", "v_zero")):
-            a = kv_quant[k]
-            if a.dtype != torch.float32 or a.shape != k_pages.shape[:-1]:
-                raise ValueError(f"{k}: want f32 {tuple(k_pages.shape[:-1])}")
-            ptrs[i] = a.data_ptr()
-    _build.check_aligned("ragged_paged_attention", k_pages=k_pages,
-                         v_pages=v_pages)
+    is_q8 = kv_quant is not None
+    ptrs = [quant[k].data_ptr() if is_q8 else None for k in _QUANT_LEAVES]
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     fn = _build.entry("ragged_paged_attention", _ARGTYPES)

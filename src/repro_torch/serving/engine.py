@@ -39,12 +39,14 @@ The reference's ``paged=None`` follows its ``REPRO_DECODE_MODE`` switch
 (default: slot-contiguous); the port has no such switch and takes None to
 mean the paged layout, so callers ask for ``paged=False``.
 
-Not in this slice: the multi-tier KV spill (``kv_tier``) and the
-KV-lifecycle sanitizer (``sanitize=True``) raise ``NotImplementedError``,
-and ``submit(prefix_embeds=...)`` (VLM prefixes) raises ``ValueError``
-before anything is admitted. ``kv_tier`` stays an attribute (always None)
-and ``n_attn_layers`` and ``queue`` are the reference's, so the
-reference's ``KVSanitizer.install`` attaches to this engine as it is.
+Paged engines with the prefix cache also take the reference's
+multi-tier KV (``kv_tier``, a ``router.KVBlockStore``): LRU-evicted cached
+blocks spill to the host tier through a synchronous host read of their
+pages, made before the block id is reused, and a later prefix hit restores
+them. ``sanitize=True`` (or ``sanitize=None`` under ``REPRO_SANITIZE=1``)
+installs the KV-lifecycle sanitizer (``analysis/sanitizer.py``) on a
+paged engine. ``submit(prefix_embeds=...)`` (VLM prefixes) raises
+``ValueError`` before anything is admitted.
 
 Most callers should not hold an Engine directly: ``ServingEndpoint``
 (serving/endpoint.py) is the stable handle that swaps engines in place
@@ -59,8 +61,10 @@ from typing import Iterator, List, Optional, Sequence, Union
 
 import torch
 
+from repro_torch.analysis.sanitizer import KVSanitizer
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
 from repro_torch.models.attention import paged_kv_token_bytes
 from repro_torch.models.common import as_dtype
 from repro_torch.models import transformer
@@ -87,15 +91,8 @@ class Engine:
                  kv_tier=None, kv_dtype=None,
                  fused: Optional[bool] = None,
                  sanitize: Optional[bool] = None, device=None):
-        if kv_tier is not None:
-            raise NotImplementedError("multi-tier KV spill (kv_tier) is not "
-                                      "ported yet")
-        if sanitize:
-            raise NotImplementedError("the KV-lifecycle sanitizer "
-                                      "(sanitize=True) is not ported yet")
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.kv_tier = None
         self.model = Model(cfg)     # dense decoders: attention and rwkv
         if paged is None:
             paged = True
@@ -157,12 +154,69 @@ class Engine:
         self.retired = False
         self.last_migration_bytes: Optional[int] = None
         self._step_prefill_tokens: int = 0
+        # multi-tier KV (router/kvtier.py): LRU-evicted cached blocks
+        # spill HBM -> host tier and are restored on a later prefix hit
+        self.kv_tier = kv_tier
+        self._spill_hook = None
+        if kv_tier is not None:
+            if not prefix_cache:
+                raise ValueError("kv_tier needs prefix_cache=True: spilled "
+                                 "blocks are content-addressed by chain "
+                                 "hash")
+            self.block_mgr.kv_tier = kv_tier
+            self._install_spill_hook()
+        # KV-lifecycle sanitizer (analysis/sanitizer.py). Explicit
+        # sanitize=True demands the paged layout; env-driven enabling
+        # (REPRO_SANITIZE=1) silently no-ops on non-paged engines so one
+        # env var can cover a whole mixed test matrix.
+        self.sanitizer = None
+        if sanitize is None:
+            sanitize = ops.sanitize_mode() and paged
+        elif sanitize and not paged:
+            raise ValueError("sanitize=True needs the paged KV layout "
+                             "(Engine(paged=True))")
+        if sanitize:
+            self.sanitizer = KVSanitizer.install(self)
+
+    # -------------------------------------------------- multi-tier KV
+    def _install_spill_hook(self):
+        """Catch BlockManager evictions: read the page content (the hook
+        fires before the block id is reused) and spill it to the host
+        tier. ``read_pages`` copies to the host synchronously, so the
+        bytes are read before any later kernel can overwrite the page.
+        The closure binds THIS engine's runner — a consolidation successor
+        must rebind (``consolidated`` does)."""
+
+        def _spill(blk: int, h: bytes):
+            self.kv_tier.put(h, self.runner.read_pages(blk))
+
+        self._spill_hook = _spill
+        self.block_mgr.evict_hooks.append(_spill)
+
+    def _remove_spill_hook(self):
+        if self._spill_hook is not None:
+            self.block_mgr.evict_hooks.remove(self._spill_hook)
+            self._spill_hook = None
 
     def _apply_restores(self, admitted):
-        """Host-tier restores need a ``kv_tier``, which is not ported: the
-        BlockManager never queues one without it."""
-        if self.block_mgr.drain_restores():
-            raise KVInvariantError("restores pending but no kv_tier attached")
+        """Write spilled page bytes back into the worker pools for every
+        host-tier restore the last allocation queued, charging the
+        measured transfer to the (single) admitted request. Must run
+        before ``_apply_copies``: a COW source may itself be a restored
+        block."""
+        pending = self.block_mgr.drain_restores()
+        if not pending:
+            return
+        if self.kv_tier is None:
+            raise KVInvariantError(
+                "restores pending but no kv_tier attached")
+        seconds = 0.0
+        for h, dst in pending:
+            payload, flow = self.kv_tier.take(h)
+            self.runner.write_pages(dst, payload)
+            seconds += flow.seconds
+        for req in admitted:              # at most one per ScheduleBatch
+            req.metrics.restore_seconds += seconds
 
     # ------------------------------------------------------- delegation
     @property
@@ -604,6 +658,7 @@ class Engine:
                      prefill_chunk=self.prefill_chunk,
                      policy=self.scheduler.policy,
                      kv_dtype=self.kv_dtype, fused=self.fused,
+                     sanitize=False,   # the successor adopts OUR sanitizer
                      device=self.device)
         stage_caches = [w.cache for w in self.runner.workers]
         # the successor's own fresh caches go before the gather allocates
@@ -616,6 +671,11 @@ class Engine:
             cache, moved = gather_stage_caches_with_bytes(
                 stage_caches, live_blocks=live, target_stage=0,
                 tracer=self.block_mgr.tracer)
+            if self.sanitizer is not None:
+                self.sanitizer.check_migration(
+                    moved, self.block_mgr.migration_bytes(
+                        live_rids,
+                        self.n_attn_layers(migrated_only=True)))
             self.last_migration_bytes = moved
             eng.last_migration_bytes = moved
         else:
@@ -623,10 +683,26 @@ class Engine:
         eng.runner.workers[0].cache = cache
         eng.block_mgr = self.block_mgr
         eng.scheduler.adopt(self.scheduler, self.block_mgr)
+        if self.sanitizer is not None:
+            # rebind the tracer endpoints (runner / workers; the shared
+            # BlockManager already carries bm.tracer) BEFORE rebuild_rows
+            # so the successor's row writes are observed
+            eng.sanitizer = self.sanitizer
+            self.sanitizer.rebind(eng)
         eng.runner.rebuild_rows(eng.active(), self.block_mgr.tables)
         eng._rid = self._rid
         eng.finished = self.finished
         eng.steps = self.steps            # keep step metrics continuous
+        if self.kv_tier is not None:
+            # the shared BlockManager carries the hook list across the
+            # swap, but our hook closes over the runner being retired —
+            # rebind the spill path to the successor. (The cold cached
+            # pages dropped above already spilled through OUR runner,
+            # which was still live — a consolidation demotes the prefix
+            # cache to the host tier instead of discarding it.)
+            self._remove_spill_hook()
+            eng.kv_tier = self.kv_tier
+            eng._install_spill_hook()
         return eng
 
     def scale_up(self, full_params: dict) -> List["Engine"]:
@@ -641,8 +717,11 @@ class Engine:
                                  prefix_cache=self.prefix_cache,
                                  prefill_chunk=self.prefill_chunk,
                                  policy=self.scheduler.policy,
+                                 kv_tier=self.kv_tier,
                                  kv_dtype=self.kv_dtype,
-                                 fused=self.fused, device=self.device))
+                                 fused=self.fused,
+                                 sanitize=self.sanitizer is not None,
+                                 device=self.device))
         return [first] + others
 
     def retire(self):
@@ -652,5 +731,6 @@ class Engine:
         worker caches so any stale use raises (``_check_live``) instead of
         silently corrupting block tables it no longer owns."""
         self.retired = True
+        self._remove_spill_hook()         # closure binds the dead runner
         self.scheduler.clear()
         self.runner.retire()

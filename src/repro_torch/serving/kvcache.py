@@ -47,8 +47,7 @@ HBM→host KV spill) or drop the hash from an external residency index
 (the router's per-replica warm-prefix map) without ever going stale.
 
 **Multi-tier restore** (``kv_tier``): when a lower KV tier is attached
-(the reference package's router/kvtier.py; the port's Engine does not
-attach one yet), ``allocate``'s prefix match does not stop
+(see repro_torch/router/kvtier.py), ``allocate``'s prefix match does not stop
 at the first HBM index miss — a chain block whose hash the tier holds is
 assigned a *fresh* block, registered in the index, and queued on
 ``pending_restores``; the engine drains the queue

@@ -1,5 +1,5 @@
 """Cold-start data plane: chunked model store + streamed stage loading
-(the port of the reference's ``store`` package, less its KV segment tier).
+(the port of the reference's ``store`` package).
 
 ``manifest``  — per-tensor chunk files + stage byte ranges per degree;
 ``store``     — tiered byte sources (local/peer/remote) and the
@@ -7,8 +7,13 @@
 ``loader``    — ``StreamedStageLoader``: materializes stage params
                 tensor-by-tensor onto the device with a measured
                 ``WorkerTimeline``;
-``validate``  — measured-vs-analytic cross-checks.
+``validate``  — measured-vs-analytic cross-checks;
+``kvsegment`` — serialized KV *segment* tier: the bottom of the
+                multi-tier KV cache (HBM → host → store), backing the
+                router's ``KVBlockStore`` overflow.
 """
+
+from repro_torch.store.kvsegment import KVSegmentStore  # noqa: F401
 
 from repro_torch.store.loader import (ColdStartReport,  # noqa: F401
                                       StageLoadRecord, StreamedStageLoader,
@@ -28,6 +33,6 @@ __all__ = [
     "DiskTier", "FetchFlow", "FetchSchedule", "MemoryTier",
     "ModelStore", "StoreTier",
     "ColdStartReport", "StageLoadRecord", "StreamedStageLoader",
-    "TensorSpan",
+    "TensorSpan", "KVSegmentStore",
     "StageCrossCheck", "assert_within", "crosscheck_stages",
 ]

@@ -87,6 +87,13 @@ def _dtype_name(t: torch.Tensor) -> str:
     return str(t.dtype).replace("torch.", "")
 
 
+def raw_leaf(t) -> Tuple[bytes, str, Tuple[int, ...]]:
+    """A tensor's raw host bytes (those of ``host_array``: bfloat16 as its
+    16-bit words), its torch dtype name and its shape."""
+    t = torch.as_tensor(t)
+    return host_array(t).tobytes(), _dtype_name(t), tuple(t.shape)
+
+
 def flatten_with_paths(tree) -> Dict[Tuple[str, ...], torch.Tensor]:
     """Leaves keyed by their path components, in sorted-key order (the
     order of the reference's ``jax.tree_util.tree_flatten_with_path``)."""

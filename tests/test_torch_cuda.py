@@ -825,3 +825,140 @@ def test_cuda_rwkv_engine_matches_cpu(cuda, paged):
     assert counts["wkv6"] > 0
     assert sum(counts.values()) == counts["wkv6"]
     assert streams[0] == streams[1]
+
+
+# ---------------------------------------------------------------------------
+# KV tiers and the sanitizer on the card
+# ---------------------------------------------------------------------------
+
+def _bf16_engine(dev, **kw):
+    """The granite smoke model in bfloat16 (bf16 pages, or int8 ones with
+    ``kv_dtype``) on ``dev``, weights from a seeded generator."""
+    import dataclasses
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import Engine
+    cfg = dataclasses.replace(smoke_variant(get_config("granite-3-8b")),
+                              dtype="bfloat16")
+    params = Model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    return Engine(cfg, [_tree_to(params, dev)], max_batch=2, max_seq=32,
+                  block_size=8, paged=True, prefix_cache=True, device=dev,
+                  **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", [None, "int8"], ids=["bf16", "int8"])
+def test_cuda_block_spill_restore_bit_exact(cuda, kv_dtype):
+    """Two committed blocks are read to the host, demoted through the
+    serialized segment tier, taken back and written into two free blocks of
+    the card's pool: every pool leaf's bits are the originals', and the
+    ragged kernel's output over the restored blocks equals its output over
+    the original ones exactly."""
+    from repro_torch.router import KVBlockStore
+    from repro_torch.serving.api import SamplingParams
+    eng = _bf16_engine(cuda, kv_dtype=kv_dtype)
+    eng.submit(list(range(1, 18)), SamplingParams(max_new=2))
+    eng.run()
+    bm, runner = eng.block_mgr, eng.runner
+    src = [bm._index[h] for h in bm.indexed_hashes()][:2]
+    dst = [b for b in range(bm.n_blocks) if bm.refcount(b) == 0
+           and b not in src and b not in bm._cached][:2]
+    assert len(src) == len(dst) == 2
+    tier = KVBlockStore(host_capacity_blocks=0)      # demote at once
+    for i, blk in enumerate(src):
+        payload = runner.read_pages(blk)
+        assert all(t.device.type == "cpu" for e in payload for t in e[1:3])
+        tier.put(bytes([i]), payload)
+    assert tier.demotions == 2 and len(tier.segments) == 2
+    for i, blk in enumerate(dst):
+        payload, _ = tier.take(bytes([i]))
+        runner.write_pages(blk, payload)
+    torch.cuda.synchronize()
+    cache = runner.workers[0].cache
+    for sub in cache.values():
+        for arr in sub.values():
+            for s, d in zip(src, dst):
+                assert torch.equal(arr[:, s].view(torch.uint8),
+                                   arr[:, d].view(torch.uint8))
+    sub = cache["slot00"]
+    quant = ({k: sub[k][0] for k in ("k_scale", "k_zero", "v_scale",
+                                     "v_zero")} if kv_dtype else None)
+    hq, hd = eng.cfg.n_heads, eng.cfg.head_dim
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn(16, hq, hd, generator=g, device=cuda,
+                    dtype=torch.bfloat16)
+    row = torch.zeros(16, dtype=torch.int32, device=cuda)
+    pos = torch.arange(16, dtype=torch.int32, device=cuda)
+    outs = []
+    ops.reset_launch_counts()
+    for blocks in (src, dst):
+        tables = torch.tensor([blocks], dtype=torch.int32, device=cuda)
+        outs.append(ops.ragged_paged_attention(
+            q, sub["k_pages"][0], sub["v_pages"][0], tables, row, pos,
+            kv_quant=quant))
+    torch.cuda.synchronize()
+    name = "ragged_paged_attention_q8" if kv_dtype else \
+        "ragged_paged_attention"
+    assert ops.launch_counts()[name] == 2
+    assert ops.body_counts()[f"{name}/tensor_core"] == 2
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True], ids=["paged", "fused"])
+def test_cuda_sanitized_tiered_engine_clean(cuda, fused):
+    """A paged engine on the card with the sanitizer, dispatch's contract
+    checks and a tight KV tier: spills, restores, a clean audit, and the
+    greedy streams of the same engine with neither."""
+    from repro_torch.router import KVBlockStore
+    from repro_torch.serving.api import SamplingParams
+    prompts = [list(range(1, 18)), [9, 8, 7, 6, 5, 4, 3, 2, 1, 9, 8],
+               [(5 * i) % 97 + 1 for i in range(20)]]
+    churn = [[(31 * j + i) % 500 + 1 for i in range(24)] for j in range(6)]
+    streams, tiers = [], []
+    for on in (False, True):
+        tier = KVBlockStore(host_capacity_blocks=4)
+        eng = _bf16_engine(cuda, kv_tier=tier, sanitize=on, fused=fused)
+        ops.set_sanitize_mode(on)
+        try:
+            got = []
+            for p in prompts + churn + prompts:
+                got.append([ev.token for ev in
+                            eng.generate(p, SamplingParams(max_new=4))])
+        finally:
+            ops.set_sanitize_mode(False)
+        streams.append(got)
+        tiers.append(tier.stats())
+        if on:
+            assert eng.sanitizer.events > 0
+            assert not eng.sanitizer.check_idle(), eng.sanitizer.report()
+    assert tiers[0] == tiers[1]
+    assert tiers[1]["spills"] > 0 and tiers[1]["restores"] > 0
+    assert tiers[1]["demotions"] > 0
+    assert streams[0] == streams[1]
+    assert streams[1][:3] == streams[1][-3:]       # restored == first serve
+
+
+@pytest.mark.cuda
+def test_cuda_kernelcheck_refuses_out_of_pool_page_before_launch(cuda):
+    """In sanitize mode a page id outside the pool raises the contract
+    error on the host, and nothing is launched."""
+    from repro_torch.analysis.kernelcheck import KernelContractError
+    q = torch.zeros(2, 1, 4, 16, dtype=torch.bfloat16, device=cuda)
+    pages = torch.zeros(5, 8, 2, 16, dtype=torch.bfloat16, device=cuda)
+    tables = torch.tensor([[0, 1], [2, 5]], dtype=torch.int32, device=cuda)
+    kv_len = torch.tensor([9, 12], dtype=torch.int32, device=cuda)
+    qr = torch.zeros(8, 4, 16, dtype=torch.bfloat16, device=cuda)
+    row = torch.zeros(8, dtype=torch.int32, device=cuda)
+    pos = torch.arange(8, dtype=torch.int32, device=cuda)
+    ops.reset_launch_counts()
+    ops.set_sanitize_mode(True)
+    try:
+        with pytest.raises(KernelContractError, match="page ids outside"):
+            ops.paged_decode_attention(q, pages, pages, tables, kv_len)
+        with pytest.raises(KernelContractError, match="page ids outside"):
+            ops.ragged_paged_attention(qr, pages, pages, tables, row, pos)
+    finally:
+        ops.set_sanitize_mode(False)
+    torch.cuda.synchronize()
+    assert sum(ops.launch_counts().values()) == 0

@@ -147,10 +147,12 @@ def test_not_ported_options_raise():
 
     cfg = _cfg()
     params = Model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
-    for kw in ({"kv_tier": object(), "prefix_cache": True},
-               {"sanitize": True}):
-        with pytest.raises(NotImplementedError):
-            Engine(cfg, [params], device="cpu", **kw)
+    # kv_tier and the sanitizer are ported: the reference's refusals hold
+    from repro_torch.router import KVBlockStore
+    with pytest.raises(ValueError, match="prefix_cache"):
+        Engine(cfg, [params], device="cpu", kv_tier=KVBlockStore())
+    with pytest.raises(ValueError, match="paged"):
+        Engine(cfg, [params], device="cpu", paged=False, sanitize=True)
     # mamba, MoE and enc-dec are refused; attention and rwkv are served
     import dataclasses
     for kw in ({"mixer_pattern": ("rwkv", "mamba")},
