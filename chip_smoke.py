@@ -12,6 +12,7 @@ NVIDIA H100.
     python3 chip_smoke.py --wkv6-shape        # build, then the wkv6 kernel
                                      # at rwkv6-1.6b's prefill and decode
     python3 chip_smoke.py --tier      # build, then phase 7 alone
+    python3 chip_smoke.py --fleet     # build, then phase 8 alone
 
 Run from the root of a checkout. Phases:
 
@@ -116,6 +117,32 @@ Run from the root of a checkout. Phases:
    warm streams, the wall GB/s of ``read_pages`` and ``write_pages`` of 16
    blocks, the decode-step p50 of A and B (the sanitizer's and the checks'
    cost) and each check's cost a call, the router's decisions.
+8. the fleet (``FLEET``): one ``FleetFrontend`` on the card over the
+   4 servers of phase 4 (source tier at the remote registry's 2 Gbps,
+   placements at the peer's 16 Gbps; ``FleetPolicy(keepalive_s=30,
+   proactive_placement=True, placement_interval_s=10, placement_top_k=2)``)
+   serves granite-3-8b (routed ``kv_affinity``, a 64-block KV host tier,
+   paged, prefix cache, block 16, 2-stage cold starts) and rwkv6-1.6b
+   (slot-contiguous), both full width and depth, bf16, each registered
+   once into a host-memory store from its seeded weights. On the simulated
+   clock: granite P1 (300 tokens) and P2 (257) and rwkv R1 (412) at t=0,
+   both cold starts contending; P1 again at granite's ready + 5 s (a prefix
+   hit); past the keepalive (placement rounds, idle consolidation through
+   ``full_params``, the reap, which spills granite's prefix cache to the
+   host tier); P1 and R1 again, cold, then drained to zero. Held: the
+   first streams equal 1-stage engines' on the same weights (paged granite,
+   contiguous rwkv); the re-warmed R1 equals the first; the re-warmed P1
+   (its prefix restored from the host tier) equals the warm one, both
+   prefix-cached (cold against prefix-cached P1 is reported, with the
+   logits where they part, as phase 7 reports cold against warm); 4 cold
+   starts, the
+   second pair from the placed ``peer`` tier and granite's second shorter;
+   a consolidation; host blocks after the reap and restored tokens on the
+   second P1; every slot empty and the card's allocated memory back within
+   256 MiB after the drain; ragged, paged decode and wkv6 launched, the
+   attention kernels on the tensor cores. Reported: the wall GB/s of every
+   ``materialize()`` and ``full_params``, the fleet's metrics and cold
+   starts (simulated), the peak allocated memory.
 
 Any failed check raises, and the script exits nonzero without a result
 line. On success the second-to-last line is the ``kernels`` JSON (every
@@ -1875,6 +1902,319 @@ def tier_phase(torch):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the fleet control plane over real engines
+# ---------------------------------------------------------------------------
+
+FLEET_KEEPALIVE = 30.0      # the policy's idle window, simulated seconds
+FLEET_HOST_BLOCKS = 64      # granite's KV host tier
+FLEET_GRANITE_KW = dict(block_size=16, max_batch=4, max_seq=1024,
+                        min_stages=2)
+FLEET_RWKV_KW = dict(paged=False, max_batch=4, max_seq=1024)
+FLEET_MEM_SLACK = 256 << 20  # allocated bytes the drain may leave behind
+
+
+def prefix_witness(torch, model, params, prompt, cold, warm, block=16):
+    """Where a prefix-cached stream (``warm``) leaves the cold one, the
+    logits at the first diverging token from the prompt and the tokens both
+    streams share: through one prefill of that whole context (the cold
+    path's shape), and through a prefill of the prompt's full blocks (the
+    cached prefix) followed by decode steps over the rest (another shape
+    for the same suffix). Margins and shifts are in logits, over the real
+    vocabulary. Reported, not asserted."""
+    j = next((n for n, (x, y) in enumerate(zip(cold, warm)) if x != y),
+             None)
+    if j is None:
+        return {"first_diverging": None}
+    vocab = model.cfg.vocab
+    dev = params["final_norm"].device
+    ctx = torch.tensor([prompt + cold[:j]], dtype=torch.int32, device=dev)
+    cached = len(prompt) // block * block
+    la = model.prefill(params, ctx, 1024)[0][0, :vocab].float()
+    lb, cache = model.prefill(params, ctx[:, :cached], 1024)
+    for t in range(cached, ctx.shape[1]):
+        pos = torch.tensor([[t]], dtype=torch.int32, device=dev)
+        lb, cache = model.decode_step(params, cache, ctx[:, t:t + 1], pos)
+    lb = lb[0, :vocab].float()
+    top2 = la.topk(2).values
+    return {"first_diverging": j, "of": len(cold), "cold_token": cold[j],
+            "warm_token": warm[j], "prefill_argmax": int(la.argmax()),
+            "prefix_then_decode_argmax": int(lb.argmax()),
+            "top2_margin": float(top2[0] - top2[1]),
+            "cold_gap": float(la[cold[j]] - la[warm[j]]),
+            "logit_std": float(la.std()),
+            "path_shift_max": float((la - lb).abs().max())}
+
+
+def fleet_stores(torch):
+    """granite-3-8b and rwkv6-1.6b at full width and depth, bf16, weights
+    drawn once each from a seeded generator on the card: each chunked into
+    a host-memory ``ModelStore`` behind the remote registry's bandwidth
+    (the fleet's source tier), and served once on a 1-stage engine on the
+    card (granite paged, rwkv slot-contiguous), each prompt alone as the
+    fleet serves it. The card copy is freed before the fleet runs. Returns
+    {name: (cfg, store)}, {name: 1-stage streams}, prompts, registration
+    seconds."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serving.endpoint import ServingEndpoint
+    from repro_torch.serving.engine import Engine
+    from repro_torch.store.store import ModelStore, REMOTE_BW
+
+    granite, rwkv = get_config("granite-3-8b"), get_config("rwkv6-1.6b")
+    g_prompts = main_prompts(granite.vocab)
+    prompts = {"P1": g_prompts[0], "P2": g_prompts[1],        # 300, 257
+               "R1": main_prompts(rwkv.vocab)[2]}              # 412
+    stores, ref, reg_s = {}, {}, {}
+    for cfg, names, paged in ((granite, ("P1", "P2"), True),
+                              (rwkv, ("R1",), False)):
+        model = Model(cfg)
+        params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                            device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stores[cfg.name] = (cfg, ModelStore.from_params(model, params,
+                                                        bandwidth=REMOTE_BW))
+        reg_s[cfg.name] = time.perf_counter() - t0
+        ep = ServingEndpoint(Engine(cfg, [params], paged=paged,
+                                    block_size=16, device="cuda",
+                                    **SERVE_KW))
+        for n in names:
+            ref[n] = serve_one(torch, ep, prompts[n], False, max_new=MAX_NEW)
+        del ep, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return stores, ref, prompts, reg_s
+
+
+def fleet_phase(torch):
+    """HydraServe's multi-model path on the card: one ``FleetFrontend`` over
+    4 servers (16 Gbps NIC, 12 GB/s PCIe, 80 GB), the source tier at the
+    remote registry's 2 Gbps, placements at the peer's 16 Gbps, the policy
+    ``FleetPolicy(keepalive_s=30, proactive_placement=True,
+    placement_interval_s=10, placement_top_k=2)``. granite-3-8b routed
+    (``kv_affinity``, a 64-block KV host tier, paged, prefix cache, block
+    16, 2-stage cold starts) and rwkv6-1.6b slot-contiguous, both full
+    width and depth, bf16, greedy, 32 new tokens, on the simulated clock:
+
+    1. t=0: granite P1 and P2 and rwkv R1; both cold starts begin in one
+       pump and contend;
+    2. granite's ready + 5 s: P1 again, warm, a prefix-cache hit;
+    3. past the keepalive: placement rounds, the idle consolidation
+       (through ``full_params``), the reap (granite's prefix cache spills
+       to the host tier);
+    4. P1 and R1 again, both cold, then drained to zero.
+
+    Held: the first streams equal a 1-stage engine's on the same weights;
+    the re-warmed R1 equals the first, the re-warmed P1 (restored prefix)
+    the warm one; 4 cold starts, the second pair from the placement's tier
+    and granite's second shorter; a consolidation; host blocks after the
+    reap and a restore on the second P1; every slot empty after the drain and the card's allocated memory
+    back within 256 MiB of its level before the first launch; ragged,
+    paged decode and wkv6 launched, the attention kernels on their
+    tensor-core bodies. Reported, not asserted: the warm and re-warmed P1
+    against the cold one (as the tier phase holds cold against warm), with
+    ``prefix_witness`` where they part. Returns the path's launch counts."""
+    import gc
+    from repro_torch.core import GB, Gbps, ServerSpec
+    from repro_torch.fleet import FleetFrontend, FleetPolicy
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+    from repro_torch.serving.api import SamplingParams
+    from repro_torch.store.store import PEER_BW, REMOTE_BW
+
+    t_phase = time.perf_counter()
+    stores, ref, prompts, reg_s = fleet_stores(torch)
+    (G, (gcfg, gstore)), (R, (rcfg, rstore)) = stores.items()
+    for name, (cfg, store) in stores.items():
+        log(f"  {name}: {store.total_bytes / 2**30:.2f} GiB registered into "
+            f"the host tier in {reg_s[name]:.1f} s")
+    policy = FleetPolicy(keepalive_s=FLEET_KEEPALIVE,
+                         proactive_placement=True, placement_interval_s=10.0,
+                         placement_top_k=2)
+    ff = FleetFrontend([ServerSpec(f"srv{i}", 16 * Gbps, 12e9, 80 * GB)
+                        for i in range(4)], policy, source_bw=REMOTE_BW,
+                       placement_bw=PEER_BW, device="cuda")
+    ff.register(gcfg, profile_of(Model(gcfg)), store=gstore,
+                routing="kv_affinity", kv_tier_blocks=FLEET_HOST_BLOCKS,
+                **FLEET_GRANITE_KW)
+    ff.register(rcfg, profile_of(Model(rcfg)), store=rstore, **FLEET_RWKV_KW)
+    del gstore, rstore, stores
+
+    # the wall time of every real load: each stage's materialize() and each
+    # consolidation's full_params, the card synchronised around each
+    loads = []
+    front = ff.frontend
+    begin, full = front.begin_cold_start, front.full_params
+
+    def timed_begin(name, **kw):
+        pend = begin(name, **kw)
+        for i, st in enumerate(pend.stages):
+            nbytes = front.store_of(name).stage_bytes(pend.n_stages, i)
+            st.materialize = timed(torch, st.materialize, loads,
+                                   (name, f"stage {i} of {pend.n_stages}",
+                                    nbytes))
+        return pend
+
+    def timed_full(name, **kw):
+        return timed(torch, full, loads,
+                     (name, "full_params",
+                      front.store_of(name).total_bytes))(name, **kw)
+
+    front.begin_cold_start, front.full_params = timed_begin, timed_full
+
+    sp = SamplingParams(max_new=MAX_NEW)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t_run = time.perf_counter()
+    p1, p2, r1 = ff.run_trace([(G, 0.0, prompts["P1"], sp),            # 1.
+                               (G, 0.0, prompts["P2"], sp),
+                               (R, 0.0, prompts["R1"], sp)])
+    g_first = next(c for c in ff.cold_start_log if c["model"] == G)
+    w1 = ff.submit(G, prompts["P1"], sp, now=g_first["ready"] + 5.0)  # 2.
+    t = ff.now
+    while any(mm.slots for mm in ff.models.values()):                 # 3.
+        t += 1.0
+        ff.advance(t)
+    host_blocks = ff.models[G].kv_tier.host_blocks
+    tier_after_reap = ff.models[G].kv_tier.stats()
+    p1b, r1b = ff.run_trace([(G, t + 1.0, prompts["P1"], sp),         # 4.
+                             (R, t + 1.0, prompts["R1"], sp)])
+    t += 1.0
+    while any(mm.slots for mm in ff.models.values()):
+        t += 1.0
+        ff.advance(t)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t_run
+    counts = ops.launch_counts()
+    gc.collect()
+    mem_end = torch.cuda.memory_allocated()
+    peak = torch.cuda.max_memory_allocated()
+    front.begin_cold_start, front.full_params = begin, full
+    # every idle consolidation fetches the full weights once
+    consolidations = sum(what == "full_params" for (_, what, _), _ in loads)
+
+    def must(cond, what):
+        if not cond:
+            raise AssertionError(f"fleet: {what}")
+
+    def first_diff(a, b):
+        return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                    None if len(a) == len(b) else min(len(a), len(b)))
+
+    pairs = {"P1 first vs 1-stage": (p1.output, ref["P1"]),
+             "P2 first vs 1-stage": (p2.output, ref["P2"]),
+             "R1 first vs 1-stage": (r1.output, ref["R1"]),
+             "P1 warm vs first": (w1.output, p1.output),
+             "P1 re-warmed vs first": (p1b.output, p1.output),
+             "P1 re-warmed vs warm": (p1b.output, w1.output),
+             "R1 re-warmed vs first": (r1b.output, r1.output)}
+    diverge = {k: first_diff(a, b) for k, (a, b) in pairs.items()}
+    log(f"  streams, first diverging token (None: equal): {diverge}")
+    # streams
+    must(p1.output == ref["P1"] and p2.output == ref["P2"],
+         "granite's first streams differ from a 1-stage paged engine's")
+    must(r1.output == ref["R1"],
+         "rwkv's first stream differs from a 1-stage contiguous engine's")
+    # a restore after scale-to-zero gives what the warm replica gave: both
+    # prefill only the suffix past the cached blocks, bit for bit the same
+    # computation; the cold prefill computes those rows in a longer GEMM,
+    # so a bf16 near-tie may part them (reported below, as the tier phase
+    # reports cold against warm)
+    must(p1b.output == w1.output, "the re-warmed granite P1 differs from "
+         "the warm (prefix-cached) one")
+    must(r1b.output == r1.output, "the re-warmed rwkv R1 differs from the "
+         "first")
+    must(all(len(r.output) == MAX_NEW for r in (p1, p2, r1, w1, p1b, r1b)),
+         "a request was not served to its end")
+    must(not w1.cold and w1.cached_tokens > 0,
+         f"P1 at ready + 5 s was not a warm prefix hit: {w1}")
+    # cold starts and placement
+    log_ = ff.cold_start_log
+    must(len(log_) == 4, f"{len(log_)} cold starts, want 4: {log_}")
+    must(bool(ff.placement_log), "no placement round placed anything")
+    first = {c["model"]: c for c in log_[:2]}
+    second = {c["model"]: c for c in log_[2:]}
+    must(set(first) == set(second) == {G, R}, f"cold starts {log_}")
+    must(all(c["tier"] == policy.placement_tier for c in second.values()),
+         f"the second pair did not fetch from {policy.placement_tier!r}: "
+         f"{log_[2:]}")
+    must(first[G]["s"] == 2, f"granite's cold start has {first[G]['s']} "
+         f"stages, want 2")
+    must(second[G]["duration"] < first[G]["duration"],
+         "granite's second cold start is not shorter")
+    must(consolidations >= 1, "no idle consolidation ran")
+    # the KV tier
+    must(host_blocks > 0, "the reap spilled nothing to the host tier")
+    must(p1b.restored_tokens > 0, "the re-warmed P1 restored nothing")
+    # the drain
+    must(all(not mm.slots for mm in ff.models.values()), "slots left")
+    must(mem_end - mem0 <= FLEET_MEM_SLACK,
+         f"{(mem_end - mem0) / 2**20:.1f} MiB still allocated after the "
+         f"drain")
+    # kernels
+    for k in ("ragged_paged_attention", "paged_decode_attention", "wkv6"):
+        must(counts[k] > 0, f"{k} never launched on the fleet path")
+    bodies = check_bodies(counts, "the fleet path")
+
+    rates = [{"model": m, "load": what, "bytes": n, "seconds": s,
+              "GB_per_s": n / s / 1e9} for (m, what, n), s in loads]
+    for r in rates:
+        log(f"  measured wall time of {r['model']} {r['load']} (host -> "
+            f"card): {r['seconds']:.3f} s for {r['bytes'] / 2**30:.2f} GiB, "
+            f"{r['GB_per_s']:.2f} GB/s")
+    for c in log_:
+        log(f"  cold start (simulated clock): {c['model']} t0 {c['t0']:.3f}"
+            f" s, ready {c['ready']:.3f} s, {c['duration']:.3f} s, s="
+            f"{c['s']}, tier {c['tier']}, servers {c['servers']}")
+    witness = None
+    if w1.output != p1.output:
+        full = ff.frontend.full_params(G)
+        witness = prefix_witness(torch, Model(gcfg), full, prompts["P1"],
+                                 p1.output, w1.output)
+        del full
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"  cold vs prefix-cached P1, first divergence: {witness}")
+    metrics = ff.metrics()
+    sim = {k: v for k, v in metrics.items() if k != "per_model"}
+    log(f"  fleet metrics (simulated clock): {json.dumps(sim)}")
+    cold_warm = w1.output == p1.output
+    log(f"  warm P1 (prefix hit, {w1.cached_tokens} cached tokens) == cold "
+        f"P1: {cold_warm} (reported); re-warmed P1 restored "
+        f"{p1b.restored_tokens} tokens; {consolidations} consolidations; "
+        f"host blocks after the reap {host_blocks}")
+    log(f"  card memory: {mem0 / 2**30:.2f} GiB before the first launch, "
+        f"peak {peak / 2**30:.2f} GiB, {mem_end / 2**30:.2f} GiB after the "
+        f"drain; launches {counts}; fleet run {run_s:.1f} s, phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    rec = {"loads_measured": rates, "cold_starts_simulated": log_,
+           "placements_simulated": ff.placement_log,
+           "metrics_simulated": sim,
+           "requests_simulated": [
+               {"model": r.model, "arrival": r.arrival, "wait": r.wait,
+                "ttft": r.ttft, "cold": r.cold, "cached_tokens":
+                r.cached_tokens, "restored_tokens": r.restored_tokens,
+                "restore_seconds": r.restore_seconds}
+               for r in (p1, p2, r1, w1, p1b, r1b)],
+           "kv_tier_after_reap": tier_after_reap,
+           "kv_tier_end": ff.models[G].kv_tier.stats(),
+           "router": ff.models[G].router.stats(),
+           "consolidations": consolidations, "cold_equals_warm": cold_warm,
+           "stream_divergence": diverge, "prefix_witness": witness,
+           "memory": {"before": mem0, "peak": peak, "after": mem_end},
+           "registration_s": reg_s, "launches": counts, "bodies": bodies,
+           "run_s": run_s, "phase_s": time.perf_counter() - t_phase}
+    log("FLEET " + json.dumps(rec))
+    return {k: counts[k] for k in ("ragged_paged_attention",
+                                   "paged_decode_attention", "wkv6")}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -1918,6 +2258,9 @@ def main():
     ap.add_argument("--tier", action="store_true",
                     help="build, then only the KV tier, routing and "
                          "sanitizer phase (no result line)")
+    ap.add_argument("--fleet", action="store_true",
+                    help="build, then only the fleet phase (no result "
+                         "line)")
     args = ap.parse_args()
 
     import torch
@@ -1972,11 +2315,17 @@ def main():
             "width and depth, paged)")
         tier_phase(torch)
         return
+    if args.fleet:
+        log("== the fleet: granite-3-8b and rwkv6-1.6b at full width and "
+            "depth behind one FleetFrontend")
+        fleet_phase(torch)
+        return
 
     log("== kernels vs plain versions")
     rows = kernel_phase(torch, args.quick)
 
     launches = {k: None for k in rows}
+    fleet_launches = {k: None for k in rows}
     if not args.quick:
         import gc
         from repro_torch.configs import get_config
@@ -2003,12 +2352,19 @@ def main():
         log("== KV tiers, routing and the sanitizer (granite-3-8b, full "
             "width and depth, paged)")
         tier_phase(torch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log("== the fleet: granite-3-8b and rwkv6-1.6b at full width and "
+            "depth behind one FleetFrontend")
+        fleet_launches = {k: 0 for k in rows}
+        fleet_launches.update(fleet_phase(torch))
 
     kernels = []
     for name, source, replaces in KERNELS:
         r = rows[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],
+                        "launches_fleet": fleet_launches[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],

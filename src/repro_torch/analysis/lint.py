@@ -6,8 +6,8 @@ guards ``jax.jit``, which the port never calls), keyed on the relative
 paths (``serving/kvcache.py``, ``router/kvtier.py``, ...) that
 ``src/repro_torch`` mirrors, and run over the port's package against a
 baseline of its own (``lint_baseline.json`` beside this file).
-``wallclock-in-sim`` has no module in scope until ``fleet/``, ``cluster/``
-or ``serving/simulation.py`` is ported.
+``wallclock-in-sim`` covers the port's ``fleet/``, ``cluster/`` and
+``serving/simulation.py``.
 
 Rules encode the invariants this codebase keeps re-fixing by hand:
 

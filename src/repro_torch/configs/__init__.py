@@ -1,4 +1,6 @@
-"""Architecture configs (the port's slices: granite-3-8b, rwkv6-1.6b).
+"""Architecture configs (the port's slices: granite-3-8b, rwkv6-1.6b; and
+the paper's own llama2-7b/13b and opt-6.7b, whose geometry the fleet's
+workload presets read).
 ``load_all()`` imports every arch module so that ``get_config(name)`` can
 resolve by name."""
 
@@ -7,6 +9,7 @@ import importlib
 _ARCH_MODULES = [
     "granite_3_8b",
     "rwkv6_1_6b",
+    "paper_models",
 ]
 
 _loaded = False

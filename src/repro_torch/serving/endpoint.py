@@ -270,29 +270,52 @@ class ServerlessFrontend:
                          prefix_cache: bool = False,
                          prefill_chunk: Optional[int] = None,
                          policy: str = "fcfs",
-                         flags: OverlapFlags = OverlapFlags.all()
+                         kv_tier=None,
+                         flags: OverlapFlags = OverlapFlags.all(),
+                         tier: Optional[str] = None,
+                         fallback_tier: Optional[str] = None,
+                         prefer: Optional[Sequence[str]] = None
                          ) -> "PendingColdStart":
         """Phase 1 of a cold start: plan the Alg. 1 scheme and *admit*
         every stage's fetch into the shared schedule without resolving
         any of them. A fleet launching several models in one tick begins
         them all first, then ``finish()``es each — flows landing on the
         same server then contend per Alg. 2, exactly like the stages of
-        a single group already do. Every stage fetches from the store's
-        first (fastest) tier."""
+        a single group already do.
+
+        ``prefer`` biases scheme selection toward those servers (the
+        fleet passes the model's proactive placements). When ``tier`` is
+        None and the scheme lands on a server this model is pre-seeded
+        on, the placement's tier is used automatically — a proactively
+        distributed model fetches from its fast tier; an *unseeded*
+        scheme falls back to ``fallback_tier`` (the fleet passes the
+        store's authoritative/slowest tier; None keeps the store's
+        default fastest tier, the single-model behaviour). ``kv_tier``
+        goes to the engine: its evicted prefix-cache blocks spill there."""
         dep = self._deployed[name]
         scheme = self.controller.plan_cold_start(name, free_hbm, now,
-                                                 force_s=force_s)
+                                                 force_s=force_s,
+                                                 prefer=prefer)
         n_stages = min(max(scheme.s, min_stages), dep.cfg.n_periods)
         if n_stages == scheme.s:
             servers = list(scheme.servers)
         else:                       # min_stages overrode the plan's degree
             pool = scheme.servers or tuple(self.servers)
             servers = [pool[i % len(pool)] for i in range(n_stages)]
+        if tier is None:
+            placed = {self.controller.placement_tier(name, sid)
+                      for sid in servers} - {None}
+            for t in sorted(placed):
+                if dep.store.has_tier(t):
+                    tier = t
+                    break
+            else:
+                tier = fallback_tier
         deadline = self.controller.fetch_deadline(name, scheme, now)
         loader = StreamedStageLoader(dep.store, self.schedule,
                                      dep.profile.timings, flags,
                                      load_bytes_per_s=self._load_bw(servers),
-                                     device=self.device)
+                                     tier=tier, device=self.device)
         worker_ids = [f"{name}/f{next(self._fid)}-s{i}"
                       for i in range(n_stages)]
         pending = [loader.admit_stage(n_stages, i, server_id=servers[i],
@@ -303,7 +326,7 @@ class ServerlessFrontend:
                          block_size=block_size, paged=paged,
                          prefix_cache=prefix_cache,
                          prefill_chunk=prefill_chunk, policy=policy,
-                         device=self.device)
+                         kv_tier=kv_tier, device=self.device)
         return PendingColdStart(name, dep, scheme, flags, pending,
                                 engine_kw)
 
@@ -323,7 +346,8 @@ class ServerlessFrontend:
         return self.begin_cold_start(name, **kw).finish()
 
     def full_params(self, name: str, *, now: float = 0.0,
-                    server_id: Optional[str] = None) -> dict:
+                    server_id: Optional[str] = None,
+                    tier: Optional[str] = None) -> dict:
         """The un-sliced weights, fetched through the store (the paper's
         warm-pool / object-store fill-in that consolidation's standalone
         worker performs). The simulated-clock record of the last such
@@ -337,7 +361,7 @@ class ServerlessFrontend:
         loader = StreamedStageLoader(dep.store, self.schedule, warm,
                                      OverlapFlags.all(),
                                      load_bytes_per_s=self._load_bw([sid]),
-                                     device=self.device)
+                                     tier=tier, device=self.device)
         params, record = loader.load_stage(
             1, 0, server_id=sid, worker_id=f"{name}/full{next(self._fid)}",
             now=now)
@@ -345,7 +369,8 @@ class ServerlessFrontend:
         return params
 
     def consolidate(self, endpoint: ServingEndpoint, name: str, *,
-                    now: float = 0.0) -> ServingEndpoint:
+                    now: float = 0.0,
+                    tier: Optional[str] = None) -> ServingEndpoint:
         """§6.2 scale-down, data plane included: fetch the full weights
         through the store onto the surviving worker's server, swap the
         consolidated engine in behind the endpoint handle, then account
@@ -356,7 +381,7 @@ class ServerlessFrontend:
         sid = endpoint.scheme.servers[0] if (
             endpoint.scheme and endpoint.scheme.servers) \
             else next(iter(self.servers), "local")
-        params = self.full_params(name, now=now, server_id=sid)
+        params = self.full_params(name, now=now, server_id=sid, tier=tier)
         endpoint.consolidate(params)
         moved = endpoint.last_migration_bytes
         if moved:

@@ -21,16 +21,16 @@ from repro_torch.store.loader import (ColdStartReport,  # noqa: F401
 from repro_torch.store.manifest import (ChunkRecord, Manifest,  # noqa: F401
                                         StageChunk, build_manifest,
                                         load_manifest, save_model)
-from repro_torch.store.store import (DiskTier, FetchFlow,  # noqa: F401
-                                     FetchSchedule, MemoryTier, ModelStore,
-                                     StoreTier)
+from repro_torch.store.store import (AliasTier, DiskTier,  # noqa: F401
+                                     FetchFlow, FetchSchedule, MemoryTier,
+                                     ModelStore, StoreTier)
 from repro_torch.store.validate import (StageCrossCheck,  # noqa: F401
                                         assert_within, crosscheck_stages)
 
 __all__ = [
     "ChunkRecord", "Manifest", "StageChunk", "build_manifest",
     "load_manifest", "save_model",
-    "DiskTier", "FetchFlow", "FetchSchedule", "MemoryTier",
+    "AliasTier", "DiskTier", "FetchFlow", "FetchSchedule", "MemoryTier",
     "ModelStore", "StoreTier",
     "ColdStartReport", "StageLoadRecord", "StreamedStageLoader",
     "TensorSpan", "KVSegmentStore",

@@ -94,6 +94,22 @@ class MemoryTier(StoreTier):
         return self._blobs[chunk.file][offset:offset + length]
 
 
+class AliasTier(StoreTier):
+    """A placement of the same bytes at a different bandwidth: reads are
+    served by the backing tier (whatever it hands back: ``bytearray`` from
+    disk, a ``uint8`` view from memory), only the simulated transfer leg
+    differs. This is what Alg. 1 proactive model distribution creates —
+    'the model is now resident on a nearby server group' without
+    duplicating data."""
+
+    def __init__(self, name: str, base: StoreTier, bandwidth: float):
+        super().__init__(name, bandwidth)
+        self.base = base
+
+    def read(self, chunk: ChunkRecord, offset: int, length: int):
+        return self.base.read(chunk, offset, length)
+
+
 # ------------------------------------------------------------ fetch schedule
 @dataclass
 class FetchFlow:
@@ -297,6 +313,51 @@ class ModelStore:
                 return t
         raise KeyError(f"no tier {name!r} (have "
                        f"{[t.name for t in self.tiers]})")
+
+    # ------------------------------------------------------ tier placement
+    def has_tier(self, name: str) -> bool:
+        return any(t.name == name for t in self.tiers)
+
+    def fastest_tier(self) -> StoreTier:
+        return max(self.tiers, key=lambda t: t.bandwidth)
+
+    def add_tier(self, tier: StoreTier) -> StoreTier:
+        """Register a tier, keeping the list sorted fastest-first (so the
+        default ``tier(None)`` pick is the best placement we have)."""
+        if self.has_tier(tier.name):
+            raise ValueError(f"tier {tier.name!r} already exists")
+        self.tiers.append(tier)
+        self.tiers.sort(key=lambda t: -t.bandwidth)
+        return tier
+
+    def place(self, name: str, bandwidth: float,
+              source: Optional[str] = None) -> StoreTier:
+        """Explicit tier placement (Alg. 1 proactive distribution): make
+        the model's bytes available under tier ``name`` at ``bandwidth``,
+        backed by ``source`` (default: the current slowest tier — the
+        authoritative copy). Re-placing an existing name retunes its
+        bandwidth in place; the list stays sorted fastest-first."""
+        if self.has_tier(name):
+            t = self.tier(name)
+            t.bandwidth = float(bandwidth)
+            self.tiers.sort(key=lambda t: -t.bandwidth)
+            return t
+        base = self.tier(source) if source is not None else \
+            min(self.tiers, key=lambda t: t.bandwidth)
+        return self.add_tier(AliasTier(name, base, bandwidth))
+
+    def drop_tier(self, name: str):
+        """Un-place a tier (scale-to-zero of a placement). The last tier
+        can never be dropped — the model must stay fetchable."""
+        t = self.tier(name)
+        if len(self.tiers) == 1:
+            raise ValueError("cannot drop the only tier")
+        for other in self.tiers:
+            if other is not t and isinstance(other, AliasTier) \
+                    and other.base is t:
+                raise ValueError(
+                    f"tier {name!r} still backs placement {other.name!r}")
+        self.tiers.remove(t)
 
     # ---------------------------------------------------------------- reads
     def read_range(self, chunk: ChunkRecord, offset: int, length: int,

@@ -962,3 +962,77 @@ def test_cuda_kernelcheck_refuses_out_of_pool_page_before_launch(cuda):
         ops.set_sanitize_mode(False)
     torch.cuda.synchronize()
     assert sum(ops.launch_counts().values()) == 0
+
+
+# ---------------------------------------------------------------------------
+# the fleet on the card
+# ---------------------------------------------------------------------------
+
+def _fleet_round_trip(dev, params):
+    """The fleet's scale-to-zero round trip at the smoke widths on ``dev``:
+    a routed granite (paged, prefix cache, KV tier, 2-stage cold starts)
+    and a slot-contiguous rwkv6 on four servers, P1, P2 and R1 at t=0,
+    then again at t=200 after the keepalive reaped both, drained to zero.
+    Returns (streams, cold-start log, restored tokens of the second P1)."""
+    from repro_torch.core import GB, Gbps, ModelProfile, ServerSpec, SLO
+    from repro_torch.core import TimingProfile
+    from repro_torch.fleet import FleetFrontend, FleetPolicy
+    from repro_torch.serving.api import SamplingParams
+    servers = [ServerSpec(f"srv{i}", 16 * Gbps, 12e9, 80 * GB)
+               for i in range(4)]
+    ff = FleetFrontend(servers, FleetPolicy(keepalive_s=30.0,
+                                            proactive_placement=True,
+                                            placement_interval_s=10.0,
+                                            placement_top_k=2),
+                       source_bw=1e5, device=dev)
+    timing = TimingProfile(t_cc=0.2, t_l=0.2, t_cu=0.1)
+    (gcfg, gp), (rcfg, rp) = params
+    ff.register(gcfg, ModelProfile("granite", 8 * GB, timing, SLO(7.5, 0.2)),
+                params=gp, routing="kv_affinity", kv_tier_blocks=64,
+                block_size=8, max_batch=4, max_seq=64, min_stages=2)
+    ff.register(rcfg, ModelProfile("rwkv", 2 * GB, timing, SLO(7.5, 0.2)),
+                params=rp, paged=False, max_batch=4, max_seq=64)
+    rng = np.random.RandomState(0)
+    p1, p2, r1 = (rng.randint(0, 512, n).tolist() for n in (30, 26, 41))
+    sp = SamplingParams(max_new=6)
+    trace = [(m, t, p, sp) for t in (0.0, 200.0)
+             for m, p in (("granite", p1), ("granite", p2), ("rwkv", r1))]
+    reqs = ff.run_trace(trace, drain_to=400.0)
+    assert all(not mm.slots for mm in ff.models.values())
+    return ([r.output for r in reqs], ff.cold_start_log,
+            reqs[3].restored_tokens)
+
+
+@pytest.mark.cuda
+def test_cuda_fleet_scale_to_zero_matches_cpu(cuda):
+    """The fleet's round trip on the card equals the same fleet's on the
+    CPU: streams, cold starts; re-warmed streams equal the first ones; a
+    second round trip on the card gives the first's results and leaves no
+    more memory allocated than the first did."""
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.models.model import Model
+    params = []
+    for arch in ("granite-3-8b", "rwkv6-1.6b"):
+        cfg = smoke_variant(get_config(arch))
+        params.append((cfg, Model(cfg).init(torch.Generator().manual_seed(0),
+                                            device="cpu")))
+    cpu = _fleet_round_trip("cpu", params)
+    ops.reset_launch_counts()
+    card = _fleet_round_trip("cuda", params)
+    counts = ops.launch_counts()
+    # a second round trip leaves the card's allocated memory where the
+    # first left it (the first also allocates the GEMM library's workspace)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    assert _fleet_round_trip("cuda", params) == card
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() - before <= 1 << 20
+    for k in ("ragged_paged_attention", "paged_decode_attention", "wkv6"):
+        assert counts[k] > 0, counts
+    streams, log, restored = card
+    assert streams == cpu[0]
+    assert streams[3:] == streams[:3]
+    assert restored > 0 and restored == cpu[2]
+    assert len(log) == 4 and [c["tier"] for c in log[2:]] == ["peer"] * 2
+    assert [(c["model"], c["duration"], c["s"]) for c in log] == \
+        [(c["model"], c["duration"], c["s"]) for c in cpu[1]]

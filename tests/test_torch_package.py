@@ -44,6 +44,14 @@ def test_import_leaves_jax_and_reference_unloaded():
     assert out.returncode == 0, out.stderr
     n = int(out.stdout.split()[0])
     assert n >= 20, out.stdout
+    # the walk covers the fleet slice: none of its modules loads either
+    assert {"repro_torch.fleet", "repro_torch.fleet.frontend",
+            "repro_torch.fleet.controller", "repro_torch.serving.simulation",
+            "repro_torch.cluster", "repro_torch.cluster.cluster",
+            "repro_torch.cluster.sim", "repro_torch.workloads",
+            "repro_torch.workloads.applications",
+            "repro_torch.workloads.generator",
+            "repro_torch.configs.paper_models"} <= set(_modules())
 
 
 def test_no_file_imports_jax_or_reference():
