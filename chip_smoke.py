@@ -13,6 +13,7 @@ NVIDIA H100.
                                      # at rwkv6-1.6b's prefill and decode
     python3 chip_smoke.py --tier      # build, then phase 7 alone
     python3 chip_smoke.py --fleet     # build, then phase 8 alone
+    python3 chip_smoke.py --families  # build, then phase 9 alone
 
 Run from the root of a checkout. Phases:
 
@@ -2215,6 +2216,541 @@ def fleet_phase(torch):
                                    "paged_decode_attention", "wkv6")}
 
 
+# ---------------------------------------------------------------------------
+# phase 9: sparse experts and Mamba (qwen2-moe-a2.7b, jamba-v0.1-52b)
+# ---------------------------------------------------------------------------
+
+G1_HEADS = 16             # qwen2-moe-a2.7b: 16 q and 16 kv heads (group 1)
+JAMBA_LAYERS = 16         # two periods of 8 (48.64 GiB; 32 do not fit)
+FAM_KW = dict(max_batch=4, max_seq=1024, block_size=16, device="cuda")
+
+
+def g1_kernel_phase(torch, reps, flush):
+    """The four attention kernels at qwen2-moe-a2.7b's geometry (GQA group
+    1: Hq = Hkv = 16, hd 128, bf16, page 16), each launched once on its
+    tensor-core body (``ops.body_counts``) and held row by row against its
+    float32 plain version, then timed beside its bound, its plain version
+    and one library call, at the kernel phase's shapes: the mixed ragged
+    batch, decode at kv_len 1,024/777/300/1 (paged, table of 65 pages; and
+    contiguous, S 1,024) and flash at Sq = Sk = 412. Printed as ``G1``;
+    returns one row a kernel."""
+    from repro_torch.kernels import decode_attention as kda
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ragged_attention as kra
+    h = G1_HEADS
+    g = torch.Generator(device="cuda").manual_seed(21)
+    lens = [1024, 777, 300, 1]
+    kl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    rows = {}
+
+    def one(name, label, fn, plain, library, nbytes, flops):
+        ops.reset_launch_counts()
+        got = fn()
+        torch.cuda.synchronize()
+        bodies = ops.body_counts()
+        if (bodies[f"{name}/tensor_core"], bodies[f"{name}/cuda_core"]) \
+                != (1, 0):
+            raise AssertionError(f"G=1 {name}: not on the tensor cores "
+                                 f"({bodies})")
+        err = check_rows(f"G=1 {label}", got, plain(True))
+        b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS)
+        rows[name] = dict(
+            **kernel_ms(torch, fn, reps, flush),
+            plain_ms=time_ms(torch, lambda: plain(False), max(3, reps // 4),
+                             1, flush),
+            library_ms=time_ms(torch, library, reps, flush=flush),
+            bound_ms=b_ms, bound_by=b_by, max_abs_err=err[0],
+            err_over_tol=err[1])
+
+    q, k, v, tb, row, pos = ragged_batch(torch, h, h, HD, BS,
+                                         torch.bfloat16, 21)
+    k, v = k.bfloat16(), v.bfloat16()
+    one("ragged_paged_attention", "ragged bf16 pages",
+        lambda: kra.ragged_paged_attention(q, k, v, tb, row, pos),
+        lambda f32: ref.ragged_paged_attention_reference(
+            q.float() if f32 else q, k.float() if f32 else k,
+            v.float() if f32 else v, tb, row, pos),
+        sdpa_ragged(torch, q, k, v, tb, row, pos),
+        *ragged_cost(q, 2 * h * HD * 2, tb, row, pos, h, HD))
+
+    nb = ENGINE_TABLE
+    n_pages = len(lens) * nb + 1
+    tbd = torch.randperm(n_pages - 1, generator=g, device="cuda").reshape(
+        len(lens), nb).to(torch.int32)
+    kp, vp = (torch.randn((n_pages, BS, h, HD), generator=g, device="cuda")
+              .bfloat16() for _ in range(2))
+    qd = torch.randn((len(lens), 1, h, HD), generator=g,
+                     device="cuda").bfloat16()
+    dec_bytes = (sum(lens) * 2 * h * HD * 2 + 2 * qd.numel() * 2
+                 + kl.numel() * 4)
+    dec_flops = sum(4 * h * HD * n for n in lens)
+    one("paged_decode_attention", "paged decode bf16 pages",
+        lambda: kda.paged_decode_attention(qd, kp, vp, tbd, kl),
+        lambda f32: ref.paged_decode_attention_reference(
+            qd.float() if f32 else qd, kp.float() if f32 else kp,
+            vp.float() if f32 else vp, tbd, kl),
+        sdpa_decode(torch, qd, kp, vp, tbd, kl),
+        dec_bytes + tbd.numel() * 4, dec_flops)
+
+    qf, kf, vf = (torch.randn((1, 412, h, HD), generator=g, device="cuda")
+                  .bfloat16() for _ in range(3))
+    one("flash_attention", "flash bf16 Sq=Sk=412",
+        lambda: kfa.flash_attention(qf, kf, vf),
+        lambda f32: ref.mha_reference(*(a.float() if f32 else a
+                                        for a in (qf, kf, vf))),
+        sdpa_flash(torch, qf, kf, vf),
+        2 * (2 * qf.numel() + kf.numel() + vf.numel()),
+        4 * h * HD * 412 * 413 // 2)
+
+    kc, vc = (torch.randn((len(lens), ENGINE_S, h, HD), generator=g,
+                          device="cuda").bfloat16() for _ in range(2))
+    one("decode_attention", "contiguous decode bf16 caches",
+        lambda: kda.decode_attention(qd, kc, vc, kl),
+        lambda f32: ref.decode_attention_reference(
+            *(a.float() if f32 else a for a in (qd, kc, vc)), kl),
+        sdpa_contig_decode(torch, qd, kc, vc, kl), dec_bytes, dec_flops)
+    for name, r in rows.items():
+        log(f"  G=1 {name}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms "
+            f"by {r['bound_by']}, plain {r['plain_ms']:.4f} ms, library "
+            f"{r['library_ms']:.4f} ms; without the hold "
+            f"{r['ms_host_gap']:.4f} ms)")
+    log("G1 " + json.dumps(rows))
+    return rows
+
+
+def family_params(torch, name, n_layers=None):
+    """Full-width ``name`` (depth cut to ``n_layers`` where given) on random
+    bf16 weights from a seeded generator on the card."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    cfg = get_config(name)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    torch.cuda.synchronize()
+    info = {"layers": cfg.n_layers, "of": get_config(name).n_layers,
+            "bytes": model.bytes(), "draw_s": time.perf_counter() - t0,
+            "allocated_gib": torch.cuda.memory_allocated() / 2**30}
+    log(f"  {name}: {cfg.n_layers} of {info['of']} layers, d "
+        f"{cfg.d_model}, {model.bytes() / 2**30:.2f} GiB of bf16 weights, "
+        f"drawn in {info['draw_s']:.1f} s; {info['allocated_gib']:.2f} GiB "
+        f"on the card")
+    return cfg, model, params, info
+
+
+def family_path(torch, label, ep, prompts, expect, absent=(),
+                consolidate=None):
+    """Serve ``prompts`` through ``ep`` with every launch counted from 0,
+    consolidating after 4 tokens where ``consolidate`` is given, with 4
+    decode steps from step ``PROFILE_AT`` profiled. Every kernel in
+    ``expect`` must have launched, none in ``absent``, each attention
+    launch on the tensor cores. Returns (streams, launches, bodies, the
+    step statistics with the profiled device ms a decode step and the
+    device's busy share of the unprofiled decode-step p50)."""
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    streams, steps, prof = drive(
+        torch, ep, prompts, consolidate_after=4 if consolidate else None,
+        consolidate=consolidate, profile_at=PROFILE_AT)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    if consolidate is not None and ep.n_stages != 1:
+        raise AssertionError(f"{label}: not consolidated")
+    for k in expect:
+        if counts[k] <= 0:
+            raise AssertionError(f"{label}: {k} never launched ({counts})")
+    for k in absent:
+        if counts[k] != 0:
+            raise AssertionError(f"{label}: {k} launched ({counts})")
+    bodies = check_bodies(counts, label)
+    vocab = ep.engine.cfg.vocab
+    if not all(len(s) == MAX_NEW and all(0 <= t < vocab for t in s)
+               for s in streams):
+        raise AssertionError(f"{label}: bad streams {streams}")
+    if prof is None:
+        raise AssertionError(f"{label}: nothing profiled")
+    stats = step_stats(steps)
+    stats["device_ms_per_decode_step"] = prof["device_ms_per_step"]
+    stats["busy"] = prof["device_ms_per_step"] / stats["decode_step_ms_p50"]
+    stats["top_kernels_ms_per_step"] = prof["top_kernels_ms_per_step"]
+    log(f"  {label}: prefill {stats['prefill_tok_s']:.1f} tok/s, decode "
+        f"{stats['decode_tok_s']:.1f} tok/s, decode step p50 "
+        f"{stats['decode_step_ms_p50']:.2f} ms p99 "
+        f"{stats['decode_step_ms_p99']:.2f} ms, device "
+        f"{stats['device_ms_per_decode_step']:.2f} ms a decode step (busy "
+        f"{stats['busy']:.3f}), {stats['steps']} steps; launches "
+        f"{ {k: n for k, n in counts.items() if n} }")
+    return streams, counts, bodies, stats
+
+
+def _dev_ms(e):
+    """A profiler event's device time in µs (``cuda_time_total`` before
+    PyTorch named it ``device_time_total``)."""
+    if hasattr(e, "device_time_total"):
+        return e.device_time_total
+    return e.cuda_time_total
+
+
+def family_prefill_profile(torch, model, params, prompt, layouts):
+    """One forward of ``prompt`` through ``Model.prefill`` on each layout
+    under ``torch.profiler``, after one warm-up forward, with the MoE MLP,
+    the dense MLP (the shared experts inside the MoE) and the Mamba scan
+    marked by ``record_function`` wrappers installed for the profiled call
+    only. Returns, per layout, the forward's device ms (all kernels; one
+    stream), the attention kernel's, the MoE MLP's and, inside it, the
+    expert products' (its ``einsum``s over the capacity buffer), the shared
+    experts' and the dispatch's (the rest: router, sort, scatter, combine),
+    the Mamba scan's, and the expert buffer's FLOPs over the active rows'."""
+    from unittest import mock
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import mamba as mamba_mod
+    from repro_torch.models import mlp as mlp_mod
+
+    def marked(name, fn):
+        def run(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        return run
+
+    def under(e, name):
+        p = e.cpu_parent
+        while p is not None:
+            if p.name == name:
+                return True
+            p = p.cpu_parent
+        return False
+
+    cfg = model.cfg
+    tokens = torch.tensor([prompt], dtype=torch.int32, device="cuda")
+    res = {}
+    for label, kw, names, rows in layouts:
+        model.prefill(params, tokens, 1024, **kw)
+        torch.cuda.synchronize()
+        with mock.patch.object(mlp_mod, "moe_mlp",
+                               marked("fam::moe", mlp_mod.moe_mlp)), \
+                mock.patch.object(mlp_mod, "dense_mlp",
+                                  marked("fam::dense", mlp_mod.dense_mlp)), \
+                mock.patch.object(mamba_mod, "_scan",
+                                  marked("fam::scan", mamba_mod._scan)):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                model.prefill(params, tokens, 1024, **kw)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        kern = {e.key: e.device_time_total / 1e3
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and not e.key.startswith("fam::")}
+        total = sum(kern.values())
+        attn = sum(v for k, v in kern.items()
+                   if any(f"::{n}<" in k for n in names))
+        cpu = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+        moe = sum(_dev_ms(e) for e in cpu if e.name == "fam::moe") / 1e3
+        experts = sum(_dev_ms(e) for e in cpu if e.name == "aten::einsum"
+                      and under(e, "fam::moe")) / 1e3
+        shared = sum(_dev_ms(e) for e in cpu if e.name == "fam::dense"
+                     and under(e, "fam::moe")) / 1e3
+        scan = sum(_dev_ms(e) for e in cpu if e.name == "fam::scan") / 1e3
+        rec = {"tokens": len(prompt), "device_ms": total,
+               "attention_kernel_ms": attn, "moe_ms": moe,
+               "expert_products_ms": experts, "shared_experts_ms": shared,
+               "moe_dispatch_ms": moe - experts - shared,
+               "mamba_scan_ms": scan, "profiled_wall_ms": wall * 1e3}
+        for key in ("attention_kernel", "moe", "expert_products",
+                    "moe_dispatch", "mamba_scan"):
+            rec[f"{key}_share"] = rec[f"{key}_ms"] / total if total else None
+        if cfg.n_experts:
+            # rows of x the MoE routes (pads of the ragged step included)
+            groups = mlp_mod.moe_groups(rows)
+            cap = mlp_mod.moe_capacity(cfg, rows // groups * cfg.top_k)
+            rec["moe_rows"] = rows
+            rec["moe_groups"] = groups
+            rec["moe_capacity"] = cap
+            rec["expert_buffer_over_active_flops"] = (
+                groups * cfg.n_experts * cap / (rows * cfg.top_k))
+        rec["top_kernels_ms"] = {k[:60]: v for k, v in sorted(
+            kern.items(), key=lambda kv: -kv[1])[:5]}
+        if not (total > 0 and attn > 0):
+            raise AssertionError(f"{label}: no attention kernel time")
+        res[label] = rec
+        log(f"  prefill of {len(prompt)} tokens, {label}: device "
+            f"{total:.3f} ms; attention {attn:.3f} ms, MoE {moe:.3f} ms "
+            f"(experts {experts:.3f}, shared {shared:.3f}, dispatch "
+            f"{moe - experts - shared:.3f}), Mamba scan {scan:.3f} ms; "
+            f"profiled wall {wall * 1e3:.1f} ms")
+    return res
+
+
+def decode_layout_witness(torch, model, params, prompts, streams,
+                          pg_streams):
+    """Where a request's slot-contiguous stream leaves its paged stream, the
+    logits at the first diverging token on each layout, from a prefill of
+    the prompt and decode steps over the tokens both streams share (a
+    hybrid's prefill is the same on both layouts: its streams part in
+    decode, where the two decode kernels sum in another order). Returns one
+    record per request; margins and shifts are in logits, over the real
+    vocabulary."""
+    vocab = model.cfg.vocab
+    dev = params["final_norm"].device
+    records = []
+    for i, (p, a, b) in enumerate(zip(prompts, streams, pg_streams)):
+        j = next((n for n, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            records.append({"request": i, "first_diverging": None})
+            continue
+        out = []
+        for paged in (False, True):
+            lg, cache = model.prefill(
+                params, torch.tensor([p], dtype=torch.int32, device=dev),
+                1024, paged=paged)
+            for n, tok in enumerate(a[:j]):
+                lg, cache = model.decode_step(
+                    params, cache,
+                    torch.tensor([[tok]], dtype=torch.int32, device=dev),
+                    torch.tensor([[len(p) + n]], dtype=torch.int32,
+                                 device=dev))
+            out.append(lg[0, :vocab].float())
+        lc, lp = out
+        top2 = lc.topk(2).values
+        records.append({
+            "request": i, "first_diverging": j, "of": len(a),
+            "contiguous_token": a[j], "paged_token": b[j],
+            "replay_argmax_contiguous": int(lc.argmax()),
+            "replay_argmax_paged": int(lp.argmax()),
+            "contiguous_top2_margin": float(top2[0] - top2[1]),
+            "contiguous_gap": float(lc[a[j]] - lc[b[j]]),
+            "logit_std": float(lc.std()),
+            "layout_shift_max": float((lc - lp).abs().max()),
+        })
+    return records
+
+
+def composition_witness(torch, model, params, prompts, streams, other):
+    """Where a request's stream from another step composition (``other``:
+    the fused engine's) leaves its 1-stage paged stream, the logits at the
+    first parting token from a ragged prefill of the prompt and the tokens
+    both streams share, alone and beside a copy of itself (twice the rows:
+    other groups and GEMM shapes, still no drop). Returns one record per
+    request: the top-2 margin alone beside how far the composition moves
+    the logits, over the real vocabulary. Reported, not asserted."""
+    vocab = model.cfg.vocab
+    dev = params["final_norm"].device
+    records = []
+    for i, (p, a, b) in enumerate(zip(prompts, streams, other)):
+        j = next((n for n, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            records.append({"request": i, "first_diverging": None})
+            continue
+        ctx = torch.tensor([p + a[:j]], dtype=torch.int32, device=dev)
+        alone = model.prefill(params, ctx, 1024)[0][0, :vocab].float()
+        pair = model.prefill(params, ctx.repeat(2, 1), 1024)[0][0, :vocab]
+        pair = pair.float()
+        top2 = alone.topk(2).values
+        records.append({
+            "request": i, "first_diverging": j, "of": len(a),
+            "paged_token": a[j], "other_token": b[j],
+            "argmax_alone": int(alone.argmax()),
+            "argmax_beside_a_copy": int(pair.argmax()),
+            "top2_margin": float(top2[0] - top2[1]),
+            "paged_gap": float(alone[a[j]] - alone[b[j]]),
+            "logit_std": float(alone.std()),
+            "composition_shift_max": float((alone - pair).abs().max()),
+        })
+    return records
+
+
+def agreement(a, b):
+    """The share of tokens on which streams ``a`` and ``b`` agree, and the
+    index of each request's first parting token (None where none)."""
+    share = sum(x == y for s, r in zip(a, b) for x, y in zip(s, r)) \
+        / sum(len(s) for s in a)
+    parting = [next((n for n, (x, y) in enumerate(zip(s, r)) if x != y),
+                    None) for s, r in zip(a, b)]
+    return share, parting
+
+
+def moe_family(torch, prompts):
+    """qwen2-moe-a2.7b at full width and depth (24 layers, d 2048, 16 q and
+    16 kv heads of 128, 60 routed experts top-4 plus 4 shared of d_ff 1408,
+    padded vocab 152064): a 2-stage paged endpoint (ragged prefill, chunks
+    of 256) consolidated after 4 tokens against a 1-stage one (streams
+    equal), then a fused engine over bf16 pages, one over int8 pages and a
+    contiguous engine, each path's launches counted from 0; last one
+    profiled 412-token prefill on each layout."""
+    from repro_torch.serving.endpoint import ServingEndpoint
+    from repro_torch.serving.engine import Engine
+    cfg, model, params, info = family_params(torch, "qwen2-moe-a2.7b")
+    kw = dict(FAM_KW, paged=True, prefill_chunk=256)
+    paths, launches, bodies, streams = {}, {}, {}, {}
+
+    def run(label, ep, expect, absent=(), consolidate=None):
+        s, c, b, st = family_path(torch, label, ep, prompts, expect, absent,
+                                  consolidate)
+        paths[label], launches[label], bodies[label] = st, c, b
+        streams[label] = s
+        return s
+
+    stages = [model.slice_stage_params(params, 2, i) for i in range(2)]
+    ep = ServingEndpoint(Engine(cfg, stages, **kw))
+    main = run("qwen2-moe 2-stage -> consolidated, paged", ep,
+               ("ragged_paged_attention", "paged_decode_attention"),
+               ("flash_attention", "decode_attention"),
+               consolidate=lambda: ep.consolidate(params))
+    del ep, stages
+    one = run("qwen2-moe 1-stage, paged",
+              ServingEndpoint(Engine(cfg, [params], **kw)),
+              ("ragged_paged_attention", "paged_decode_attention"))
+    if main != one:
+        raise AssertionError(f"qwen2-moe: 2-stage + consolidation streams "
+                             f"differ from the 1-stage engine's:\n{main}\n"
+                             f"{one}")
+    log("  streams: qwen2-moe 2-stage + consolidation == 1-stage (paged)")
+    run("qwen2-moe 1-stage fused, bf16 pages",
+        ServingEndpoint(Engine(cfg, [params], fused=True, **kw)),
+        ("ragged_paged_attention",), ("paged_decode_attention",))
+    run("qwen2-moe 1-stage fused, int8 pages",
+        ServingEndpoint(Engine(cfg, [params], fused=True, kv_dtype="int8",
+                               **kw)),
+        ("ragged_paged_attention_q8",), ("paged_decode_attention",))
+    run("qwen2-moe 1-stage, contiguous",
+        ServingEndpoint(Engine(cfg, [params], **dict(FAM_KW, paged=False))),
+        ("flash_attention", "decode_attention"),
+        ("ragged_paged_attention", "paged_decode_attention"))
+    agree = {label: agreement(s, one) for label, s in streams.items()}
+    log(f"  qwen2-moe token agreement with the 1-stage paged streams (share,"
+        f" first parting token of each request): {agree}")
+    witness = composition_witness(
+        torch, model, params, prompts, one,
+        streams["qwen2-moe 1-stage fused, bf16 pages"])
+    for w in witness:
+        log(f"  qwen2-moe fused vs paged stream, first divergence: {w}")
+    prefill = family_prefill_profile(torch, model, params, prompts[2], (
+        ("contiguous (flash)", dict(paged=False),
+         ("flash_mma_kernel", "flash_kernel"), 412),
+        ("paged (ragged)", dict(paged=True),
+         ("ragged_mma_kernel", "ragged_kernel"), 416)))
+    return {"model": info, "paths": paths, "launches": launches,
+            "bodies": bodies, "agreement_with_paged": agree,
+            "fused_composition_witness": witness,
+            "prefill_profile": prefill}
+
+
+def jamba_family(torch, prompts):
+    """jamba-v0.1-52b at full width, cut to 16 of its 32 layers (attention
+    at 2, Mamba at 14 with d_in 8192, state 16, conv 4; MoE of 16 experts
+    top-2 at d_ff 14336 on 8): a 2-stage paged endpoint (each prefill
+    writes its K/V into the pools through flash, decode over the pages)
+    consolidated after 4 tokens with the Mamba states migrated, against a
+    1-stage paged engine (streams equal), then a contiguous engine (where
+    its streams part from the paged ones, the parting token must be a
+    near-tie); last one profiled 412-token prefill on each layout."""
+    from repro_torch.serving.endpoint import ServingEndpoint
+    from repro_torch.serving.engine import Engine
+    cfg, model, params, info = family_params(torch, "jamba-v0.1-52b",
+                                             JAMBA_LAYERS)
+    d_in = cfg.mamba_expand * cfg.d_model
+    n_mamba = cfg.mixer_pattern.count("mamba") * cfg.n_periods
+    info["mamba_state_bytes_per_slot"] = n_mamba * (
+        (cfg.mamba_d_conv - 1) * d_in * 2 + d_in * cfg.mamba_d_state * 4)
+    kw = dict(FAM_KW, paged=True)
+    paths, launches, bodies = {}, {}, {}
+
+    def run(label, ep, expect, absent=(), consolidate=None):
+        s, c, b, st = family_path(torch, label, ep, prompts, expect, absent,
+                                  consolidate)
+        paths[label], launches[label], bodies[label] = st, c, b
+        return s
+
+    stages = [model.slice_stage_params(params, 2, i) for i in range(2)]
+    ep = ServingEndpoint(Engine(cfg, stages, **kw))
+    main = run("jamba 2-stage -> consolidated, paged", ep,
+               ("flash_attention", "paged_decode_attention"),
+               ("ragged_paged_attention", "decode_attention"),
+               consolidate=lambda: ep.consolidate(params))
+    del ep, stages
+    one = run("jamba 1-stage, paged",
+              ServingEndpoint(Engine(cfg, [params], **kw)),
+              ("flash_attention", "paged_decode_attention"),
+              ("ragged_paged_attention", "decode_attention"))
+    if main != one:
+        raise AssertionError(f"jamba: 2-stage + consolidation streams "
+                             f"differ from the 1-stage engine's:\n{main}\n"
+                             f"{one}")
+    log("  streams: jamba 2-stage + consolidation == 1-stage (paged)")
+    contiguous = run("jamba 1-stage, contiguous",
+                     ServingEndpoint(Engine(cfg, [params],
+                                            **dict(FAM_KW, paged=False))),
+                     ("flash_attention", "decode_attention"),
+                     ("ragged_paged_attention", "paged_decode_attention"))
+    agree, _ = agreement(contiguous, one)
+    witness = decode_layout_witness(torch, model, params, prompts,
+                                    contiguous, one)
+    for w in witness:
+        log(f"  jamba contiguous vs paged stream, first divergence: {w}")
+        if w["first_diverging"] is not None and \
+                not w["contiguous_top2_margin"] <= w["layout_shift_max"]:
+            raise AssertionError(f"jamba request {w['request']}: the layouts "
+                                 f"part where the layout cannot flip the "
+                                 f"choice")
+    log(f"  jamba contiguous streams agree with paged on {agree:.3f} of "
+        f"tokens")
+    prefill = family_prefill_profile(torch, model, params, prompts[2], (
+        ("contiguous (flash)", dict(paged=False),
+         ("flash_mma_kernel", "flash_kernel"), 412),
+        ("paged (flash over the pools)", dict(paged=True),
+         ("flash_mma_kernel", "flash_kernel"), 412)))
+    return {"model": info, "paths": paths, "launches": launches,
+            "bodies": bodies, "contiguous_agreement": agree,
+            "layout_witness": witness, "prefill_profile": prefill}
+
+
+FAMILIES_TITLE = ("== sparse experts and Mamba: qwen2-moe-a2.7b (full width "
+                  "and depth) and jamba-v0.1-52b (full width, 16 layers)")
+
+
+def families_phase(torch):
+    """The ``FAMILIES`` phase: the attention kernels at GQA group 1, then
+    qwen2-moe-a2.7b (full width and depth) and jamba-v0.1-52b (full width,
+    16 layers), one after the other, the first freed before the second is
+    drawn. Returns every kernel's launches over the phase's paths."""
+    import gc
+    from repro_torch.configs import get_config
+    t_phase = time.perf_counter()
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    g1 = g1_kernel_phase(torch, 20, flush)
+    del flush
+    prompts = main_prompts(get_config("qwen2-moe-a2.7b").vocab)
+    t0 = time.perf_counter()
+    qwen = moe_family(torch, prompts)
+    qwen["phase_s"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    prompts = main_prompts(get_config("jamba-v0.1-52b").vocab)
+    t0 = time.perf_counter()
+    jamba = jamba_family(torch, prompts)
+    jamba["phase_s"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    total = {}
+    for fam in (qwen, jamba):
+        for counts in fam["launches"].values():
+            for k, n in counts.items():
+                total[k] = total.get(k, 0) + n
+    rec = {"g1": g1, "qwen2-moe-a2.7b": qwen, "jamba-v0.1-52b": jamba,
+           "launches": total, "phase_s": time.perf_counter() - t_phase}
+    log(f"  FAMILIES phase: {rec['phase_s']:.1f} s (qwen2-moe "
+        f"{qwen['phase_s']:.1f} s, jamba {jamba['phase_s']:.1f} s)")
+    log("FAMILIES " + json.dumps(rec))
+    return total, g1
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -2261,6 +2797,9 @@ def main():
     ap.add_argument("--fleet", action="store_true",
                     help="build, then only the fleet phase (no result "
                          "line)")
+    ap.add_argument("--families", action="store_true",
+                    help="build, then only the sparse-expert and Mamba "
+                         "phase (no result line)")
     args = ap.parse_args()
 
     import torch
@@ -2320,12 +2859,18 @@ def main():
             "depth behind one FleetFrontend")
         fleet_phase(torch)
         return
+    if args.families:
+        log(FAMILIES_TITLE)
+        families_phase(torch)
+        return
 
     log("== kernels vs plain versions")
     rows = kernel_phase(torch, args.quick)
 
     launches = {k: None for k in rows}
     fleet_launches = {k: None for k in rows}
+    families_launches = {k: None for k in rows}
+    g1 = {}
     if not args.quick:
         import gc
         from repro_torch.configs import get_config
@@ -2358,6 +2903,11 @@ def main():
             "depth behind one FleetFrontend")
         fleet_launches = {k: 0 for k in rows}
         fleet_launches.update(fleet_phase(torch))
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(FAMILIES_TITLE)
+        fam, g1 = families_phase(torch)
+        families_launches = {k: fam.get(k, 0) for k in rows}
 
     kernels = []
     for name, source, replaces in KERNELS:
@@ -2365,11 +2915,16 @@ def main():
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],
                         "launches_fleet": fleet_launches[name],
+                        "launches_families": families_launches[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"],
-                        "err_over_tol": r["err_over_tol"]})
+                        "err_over_tol": r["err_over_tol"],
+                        "g1": ({k: g1[name][k] for k in (
+                            "ms", "plain_ms", "bound_ms", "bound_by",
+                            "library_ms", "max_abs_err")}
+                            if name in g1 else None)})
     # every pl.pallas_call of the repo has its kernel above
     print(json.dumps({"kernels": kernels, "not_ported": []}))
     print(json.dumps({"ok": True, "device": {

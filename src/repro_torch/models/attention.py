@@ -3,7 +3,11 @@
 * paged: K/V live in a shared page pool (N, bs, Hkv, hd) addressed through
   per-request block tables. The fused ragged step serves a whole mixed
   batch through ``ops.ragged_paged_attention``; a decode step reads the
-  pool through ``ops.paged_decode_attention``.
+  pool through ``ops.paged_decode_attention``. A prefill outside the
+  ragged step (a hybrid model's, whose recurrent mixers cannot share one
+  token axis) writes its K/V into the pool and attends through
+  ``ops.flash_attention``: over its own K/V, or over the rows it gathers
+  back from the pool when it continues a sequence.
 * slot-contiguous: each sequence owns a (S, Hkv, hd) strip of a (B, S, Hkv,
   hd) cache (``make_kv_cache``). A prefill (the whole prompt, no history)
   attends within the prompt through ``ops.flash_attention`` and writes its
@@ -13,9 +17,7 @@
 Where JAX rebuilt the caches functionally, the port writes into them in
 place (``paged_kv_write``, ``ragged_kv_write``, the contiguous writes).
 Not ported: the reference's ``append`` decode mode (an environment knob
-with no kernel of its own), chunked prefill over the paged pool with
-``flash_attention`` (the port's paged prefill is the ragged step) and
-cross-attention.
+with no kernel of its own) and cross-attention.
 """
 
 from __future__ import annotations
@@ -119,11 +121,24 @@ def ragged_kv_write(pages, new, tables, row, pos, valid):
     return pages
 
 
+def paged_kv_gather(pages, block_tables, n_tokens: int):
+    """Rows [0, n_tokens) of each sequence, gathered from the page pool
+    into a contiguous (B, n_tokens, Hkv, hd) slab: a prefill chunk attends
+    over this history (pages written by earlier chunks) with
+    ``q_offset``."""
+    bs = pages.shape[1]
+    pos = torch.arange(n_tokens, device=pages.device)
+    flat = pages.reshape((-1,) + tuple(pages.shape[2:]))
+    idx = block_tables.long()[:, pos // bs] * bs + pos % bs   # (B, n)
+    return flat[idx]
+
+
 def self_attention(cfg: ModelConfig, p: dict, x, *, positions,
                    causal: bool = True,
                    kv_cache: Optional[Tuple] = None,
                    decode: bool = False,
                    block_tables=None,
+                   hist_len: int = 0,
                    ragged=None,
                    kv_quant: Optional[dict] = None):
     """x (B,S,d). positions (B,S) absolute positions of the tokens in x.
@@ -152,16 +167,23 @@ def self_attention(cfg: ModelConfig, p: dict, x, *, positions,
     S == 1, the new K/V are written at ``positions`` and attention reads
     the pool through the tables (``ops.paged_decode_attention``).
 
+    ``decode=False`` with ``block_tables`` is the paged prefill outside the
+    ragged step: x's K/V are written into the pools at ``positions``
+    (:func:`paged_kv_write`); with ``hist_len`` 0 attention runs within x
+    (``ops.flash_attention``), and with ``hist_len`` > 0 x continues a
+    sequence whose first ``hist_len`` rows already live in the pools, so
+    attention runs over rows [0, hist_len + S) gathered back from them
+    (:func:`paged_kv_gather`) with ``q_offset=hist_len``.
+
     Returns (out (B,S,d), new_cache): the same cache tensors, written in
     place (None without a cache).
     """
     paged = ragged is not None or block_tables is not None
     if paged and kv_cache is None:
         raise ValueError("the paged layout needs its pools (kv_cache)")
-    if ragged is None and block_tables is not None and not decode:
-        raise NotImplementedError(
-            "paged prefill outside the ragged step (chunked prefill over "
-            "flash_attention) is not ported: use the ragged path")
+    if hist_len and (block_tables is None or decode or ragged is not None):
+        raise ValueError("hist_len marks a paged prefill chunk (block_tables,"
+                         " decode=False)")
     if kv_quant is not None and ragged is None:
         raise ValueError("quantized KV pools are only served by the ragged "
                          "fused path")
@@ -198,6 +220,20 @@ def self_attention(cfg: ModelConfig, p: dict, x, *, positions,
         new_cache = (ck, cv)
         kv_len = (positions[:, 0] + 1).to(torch.int32)
         out = ops.decode_attention(q.contiguous(), ck, cv, kv_len)
+    elif not decode and ragged is None:
+        ck, cv = kv_cache
+        paged_kv_write(ck, k, block_tables, positions)
+        paged_kv_write(cv, v, block_tables, positions)
+        new_cache = (ck, cv)
+        if hist_len:
+            # the chunk's own K/V round-trip through the pages: identity,
+            # the pool dtype is the compute dtype
+            total = hist_len + seq
+            k = paged_kv_gather(ck, block_tables, total)
+            v = paged_kv_gather(cv, block_tables, total)
+        out = ops.flash_attention(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), causal=causal,
+                                  q_offset=hist_len)
     elif ragged is not None:
         ck, cv = kv_cache
         assert bsz == 1

@@ -45,59 +45,65 @@ class Model:
     # ------------------------------------------------------------- serving
     def prefill(self, params, tokens, max_seq: int, *, page_size: int = 16,
                 kv_dtype=None, paged: bool = True):
-        """Full-prompt pass of ``tokens`` (B,S). ``paged=True``: through the
-        fused ragged path into fresh paged pools (each sequence owns
-        ``ceil(max_seq / page_size)`` pages; the last page is the trash
-        page), stored as ``kv_dtype`` (default: the model's dtype;
-        ``"int8"`` quantizes the pages and attention dequantizes them in
-        its loads); the cache is {"pools": the per-period pools,
-        "block_tables": (B,nb) int32}. ``paged=False``: through
-        ``flash_attention`` into fresh slot-contiguous slabs (the
-        reference's ``Model.prefill``); the cache is the per-period
-        {"k", "v"} slabs. rwkv slots carry their recurrent {"shift",
-        "wkv"} states from zero; the ragged route is attention-only, so a
-        model with a recurrent mixer takes ``paged=False``. Returns
-        (last-token logits (B,V), cache)."""
+        """Full-prompt pass of ``tokens`` (B,S). ``paged=True``: into fresh
+        paged pools (each sequence owns ``ceil(max_seq / page_size)``
+        pages; the last page is the trash page), stored as ``kv_dtype``
+        (default: the model's dtype; ``"int8"`` quantizes the pages and
+        attention dequantizes them in its loads); the cache is {"pools":
+        the per-period pools, "block_tables": (B,nb) int32}. An
+        attention-only model runs through the fused ragged path; a model
+        with a recurrent mixer writes its K/V into the pools and attends
+        through ``flash_attention`` (the ragged step is attention-only, and
+        so are int8 pages). ``paged=False``: through ``flash_attention``
+        into fresh slot-contiguous slabs (the reference's
+        ``Model.prefill``); the cache is the per-period {"k", "v"} slabs.
+        Recurrent slots (rwkv's {"shift", "wkv"}, mamba's {"conv", "h"})
+        carry their states from zero on either layout. Returns (last-token
+        logits (B,V), cache)."""
         cfg = self.cfg
         dev = params["final_norm"].device
         b, s = tokens.shape
-        if paged and not transformer.attn_only(cfg):
-            raise ValueError(f"{cfg.name}: the paged prefill is the ragged "
-                             f"step, which serves attention-only models; "
-                             f"prefill with paged=False")
-        if not paged:
-            cache = transformer.init_cache(cfg, b, max_seq, self.dtype,
-                                           kv_dtype=kv_dtype, device=dev)
+        ragged = paged and transformer.attn_only(cfg)
+        if paged and not ragged and kv_dtype is not None \
+                and as_dtype(kv_dtype) == torch.int8:
+            raise ValueError(f"{cfg.name}: int8 pages are served by the "
+                             f"ragged step, which is attention-only")
+        nb = -(-max_seq // page_size)
+        tables = (torch.arange(b * nb, dtype=torch.int32,
+                               device=dev).reshape(b, nb)
+                  if paged else None)
+        cache = transformer.init_cache(
+            cfg, b, max_seq, self.dtype, paged=paged,
+            n_pages=b * nb + 1 if paged else None,
+            page_size=page_size if paged else None, kv_dtype=kv_dtype,
+            device=dev)
+        if ragged:
+            sa = -(-s // TILE_Q) * TILE_Q
+            toks = torch.zeros((b, sa), dtype=torch.int32, device=dev)
+            toks[:, :s] = tokens.to(dev)
+            pos = torch.full((b, sa), -1, dtype=torch.int32, device=dev)
+            pos[:, :s] = torch.arange(s, dtype=torch.int32, device=dev)
+            row = torch.arange(b, dtype=torch.int32,
+                               device=dev).repeat_interleave(sa)
+            pos = pos.reshape(1, -1)
+            x = transformer.embed(cfg, params, toks.reshape(1, -1),
+                                  torch.clamp_min(pos, 0), dtype=self.dtype)
+            x, _ = transformer.run_blocks(cfg, params["blocks"], x, pos,
+                                          cache=cache,
+                                          ragged=(tables, row, pos[0] >= 0))
+            last = x[0].reshape(b, sa, -1)[:, s - 1]
+        else:
             pos = torch.arange(s, dtype=torch.int32,
                                device=dev)[None].expand(b, s)
             x = transformer.embed(cfg, params, tokens.to(dev), pos,
                                   dtype=self.dtype)
             x, _ = transformer.run_blocks(cfg, params["blocks"], x, pos,
-                                          cache=cache)
-            return transformer.head(cfg, params, x[:, -1:])[:, 0], cache
-        nb = -(-max_seq // page_size)
-        pools = transformer.init_cache(cfg, b, max_seq, self.dtype,
-                                       paged=True, n_pages=b * nb + 1,
-                                       page_size=page_size,
-                                       kv_dtype=kv_dtype, device=dev)
-        tables = torch.arange(b * nb, dtype=torch.int32,
-                              device=dev).reshape(b, nb)
-        sa = -(-s // TILE_Q) * TILE_Q
-        toks = torch.zeros((b, sa), dtype=torch.int32, device=dev)
-        toks[:, :s] = tokens.to(dev)
-        pos = torch.full((b, sa), -1, dtype=torch.int32, device=dev)
-        pos[:, :s] = torch.arange(s, dtype=torch.int32, device=dev)
-        row = torch.arange(b, dtype=torch.int32,
-                           device=dev).repeat_interleave(sa)
-        pos = pos.reshape(1, -1)
-        x = transformer.embed(cfg, params, toks.reshape(1, -1),
-                              torch.clamp_min(pos, 0), dtype=self.dtype)
-        x, _ = transformer.run_blocks(cfg, params["blocks"], x, pos,
-                                      cache=pools,
-                                      ragged=(tables, row, pos[0] >= 0))
-        last = x[0].reshape(b, sa, -1)[:, s - 1]
+                                          cache=cache, block_tables=tables)
+            last = x[:, -1]
         logits = transformer.head(cfg, params, last)
-        return logits, {"pools": pools, "block_tables": tables}
+        if paged:
+            return logits, {"pools": cache, "block_tables": tables}
+        return logits, cache
 
     def decode_step(self, params, cache, tokens, positions):
         """One decode step on a cache from :meth:`prefill` (either

@@ -1,12 +1,13 @@
-"""Decoder LM over a repeated *period* of layers (the port's slices:
-attention and rwkv mixers, each with a dense MLP).
+"""Decoder LM over a repeated *period* of heterogeneous layers: a period
+is ``cfg.mixer_pattern`` (attention, mamba and rwkv slots) zipped with the
+MoE cadence ``cfg.mlp_pattern`` (dense or moe MLPs), as in the reference.
 
 Params are stacked over periods on axis 0, as in the reference; where the
 reference scans the periods with ``lax.scan``, ``run_blocks`` loops over
 them in Python and hands each period a view of its slice. Pipeline stages
 slice the stacked axis — stage i owns periods [p0, p1) — via
 ``slice_blocks``, which returns views, so stage params share the full
-weights' memory.
+weights' memory. The encoder-decoder family is not ported.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.common import (ParamDef, as_dtype, rmsnorm,
@@ -28,13 +30,19 @@ def _period_plan(cfg: ModelConfig):
             for i, mix in enumerate(cfg.mixer_pattern)]
 
 
+MIXERS = {"attn": attn.attn_defs, "mamba": mamba_mod.mamba_defs,
+          "rwkv": rwkv_mod.rwkv_defs}
+MLPS = {"dense": mlp_mod.dense_mlp_defs, "moe": mlp_mod.moe_defs}
+
+
 def _check_supported(cfg: ModelConfig):
+    if cfg.is_encdec:
+        raise NotImplementedError(
+            f"{cfg.name}: the encoder-decoder family (cross-attention) is "
+            f"not ported yet")
     for mix, mlp in _period_plan(cfg):
-        if mix not in ("attn", "rwkv") or mlp != "dense" or cfg.is_encdec:
-            raise NotImplementedError(
-                f"{cfg.name}: the port serves attention and rwkv mixers with "
-                f"dense MLPs (got {mix}/{mlp}); mamba, MoE and enc-dec are "
-                f"not ported yet")
+        if mix not in MIXERS or mlp not in MLPS:
+            raise ValueError(f"{cfg.name}: unknown layer {mix}/{mlp}")
 
 
 def attn_only(cfg: ModelConfig) -> bool:
@@ -56,10 +64,8 @@ def is_attn_cache(sub: dict) -> bool:
 
 def block_defs(cfg: ModelConfig) -> dict:
     _check_supported(cfg)
-    mixers = {"attn": attn.attn_defs, "rwkv": rwkv_mod.rwkv_defs}
-    return {f"slot{i:02d}": {"mixer": mixers[mix](cfg),
-                             "mlp": mlp_mod.dense_mlp_defs(cfg)}
-            for i, (mix, _) in enumerate(_period_plan(cfg))}
+    return {f"slot{i:02d}": {"mixer": MIXERS[mix](cfg), "mlp": MLPS[mlp](cfg)}
+            for i, (mix, mlp) in enumerate(_period_plan(cfg))}
 
 
 def lm_defs(cfg: ModelConfig) -> dict:
@@ -93,7 +99,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype, *,
     attention may reach ever holds NaN. ``kv_dtype`` (paged only) overrides
     the pool storage dtype; int8 adds per-row scale/zero leaves
     (attention.KV_QUANT_LEAVES, f32). rwkv slots hold their slot-indexed
-    {"shift", "wkv"} states on either layout."""
+    {"shift", "wkv"} states and mamba slots their {"conv", "h"} states, on
+    either layout."""
     _check_supported(cfg)
     np_ = n_periods if n_periods is not None else cfg.n_periods
     if kv_dtype is not None and not paged:
@@ -106,6 +113,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype, *,
     for i, (mix, _) in enumerate(_period_plan(cfg)):
         if mix == "rwkv":
             cache[f"slot{i:02d}"] = rwkv_mod.init_rwkv_cache(
+                cfg, np_, batch, as_dtype(dtype), device=device)
+            continue
+        if mix == "mamba":
+            cache[f"slot{i:02d}"] = mamba_mod.init_mamba_cache(
                 cfg, np_, batch, as_dtype(dtype), device=device)
             continue
         if not paged:
@@ -148,8 +159,9 @@ def head(cfg: ModelConfig, params: dict, x):
 
 
 def _period_step(cfg: ModelConfig, pslice: dict, cslice, x, positions,
-                 decode: bool, block_tables=None, ragged=None):
-    for i, (mix, _) in enumerate(_period_plan(cfg)):
+                 decode: bool, block_tables=None, hist_len: int = 0,
+                 ragged=None):
+    for i, (mix, mlp) in enumerate(_period_plan(cfg)):
         slot = f"slot{i:02d}"
         sp = pslice[slot]
         c = cslice.get(slot) if cslice is not None else None
@@ -157,6 +169,9 @@ def _period_step(cfg: ModelConfig, pslice: dict, cslice, x, positions,
         if mix == "rwkv":
             # the shift row and WKV state are written into c in place
             x = x + rwkv_mod.rwkv_mixer(cfg, sp["mixer"], xin, cache=c)
+        elif mix == "mamba":
+            # the conv history and SSM state are written into c in place
+            x = x + mamba_mod.mamba_mixer(cfg, sp["mixer"], xin, cache=c)
         else:
             paged = c is not None and "k_pages" in c
             if paged:
@@ -170,31 +185,39 @@ def _period_step(cfg: ModelConfig, pslice: dict, cslice, x, positions,
                                        decode=decode,
                                        block_tables=(block_tables if paged
                                                      else None),
+                                       hist_len=hist_len if paged else 0,
                                        ragged=ragged, kv_quant=kvq)
             x = x + y
         xin = rmsnorm(x, sp["mlp"]["norm"], cfg.norm_eps)
-        x = x + mlp_mod.dense_mlp(sp["mlp"], xin)
+        if mlp == "dense":
+            x = x + mlp_mod.dense_mlp(sp["mlp"], xin)
+        else:
+            # the load-balancing loss is a training term: serving drops it
+            x = x + mlp_mod.moe_mlp(cfg, sp["mlp"], xin)[0]
     return x
 
 
 def run_blocks(cfg: ModelConfig, blocks: dict, x, positions, *,
                cache: Optional[dict] = None, decode: bool = False,
-               block_tables=None, ragged=None):
+               block_tables=None, hist_len: int = 0, ragged=None):
     """Run the stacked periods in order. ``blocks``/``cache`` leading dim =
     periods (possibly a stage's slice); each period gets views of its
     slice, so the caches are written in place. A slot-contiguous cache
     (``k``/``v`` slabs) is prefilled from row 0 or, with ``decode``,
     appended at ``positions``; ``block_tables`` (B,nb) addresses the paged
-    pools on a decode step; ``ragged`` = (tables, row, valid) routes
-    attention through the fused ragged-batch kernel — x is (1, T, d),
-    positions (1, T) with -1 pads. An rwkv slot's recurrence starts from its
-    cached state and leaves the new one there. Returns (x, cache)."""
+    pools on a decode step and on a paged prefill (``hist_len`` rows of
+    each sequence already in the pools; see attention.self_attention);
+    ``ragged`` = (tables, row, valid) routes attention through the fused
+    ragged-batch kernel — x is (1, T, d), positions (1, T) with -1 pads.
+    An rwkv or mamba slot's recurrence starts from its cached state and
+    leaves the new one there. Returns (x, cache)."""
     for i in range(tree_leaves(blocks)[0].shape[0]):
         pslice = tree_map(lambda a: a[i], blocks)
         cslice = tree_map(lambda a: a[i], cache) if cache is not None \
             else None
         x = _period_step(cfg, pslice, cslice, x, positions, decode,
-                         block_tables=block_tables, ragged=ragged)
+                         block_tables=block_tables, hist_len=hist_len,
+                         ragged=ragged)
     return x, cache
 
 

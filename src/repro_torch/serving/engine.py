@@ -30,10 +30,14 @@ effects. KV layouts (``paged`` flag):
     every slot through ``decode_attention``. The options above need the
     paged layout and are refused, as in the reference.
 
-Recurrent mixer states (rwkv's) are slot-indexed on either layout: a model
-with one prefills one whole prompt at batch 1, its decode steps run the
-``wkv6`` recurrence, and the attention-only options (prefix cache, chunked
-prefill, the fused step, int8 pages) are refused, as in the reference.
+The port serves the reference's decoder families: attention (GQA, dense
+or sparse-expert MLPs), rwkv and the hybrid of attention and mamba; the
+encoder-decoder family is refused at ``Model``. Recurrent mixer states
+(rwkv's, mamba's) are slot-indexed on either layout: a model with one
+prefills one whole prompt at batch 1 (on the paged layout its attention
+K/V go into the pools through the slot's table row), and the
+attention-only options (prefix cache, chunked prefill, the fused step,
+int8 pages) are refused, as in the reference.
 
 The reference's ``paged=None`` follows its ``REPRO_DECODE_MODE`` switch
 (default: slot-contiguous); the port has no such switch and takes None to
@@ -93,7 +97,7 @@ class Engine:
                  sanitize: Optional[bool] = None, device=None):
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.model = Model(cfg)     # dense decoders: attention and rwkv
+        self.model = Model(cfg)
         if paged is None:
             paged = True
         self.paged = paged

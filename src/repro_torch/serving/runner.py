@@ -18,7 +18,9 @@ path (``forward_batch``), as in the reference: the flattening is the
 reference's, tile-aligned spans and power-of-two total lengths, so both
 packages feed the kernels the same layout. Otherwise (the slot-contiguous
 layout, or a model with a recurrent mixer) a prefill runs one request at
-batch 1 over its whole prompt into its slot (``prefill_slot``). A decode
+batch 1 over its whole prompt into its slot (``prefill_slot``); on the
+paged layout its attention K/V go into the pools through the slot's
+block-table row. A decode
 runs all ``max_batch`` slots, idle ones at position 0, as the reference
 does; the slot-contiguous layout has no block table.
 """
@@ -119,8 +121,9 @@ class ModelRunner:
         """One prefill forward over rows [start, start+n) of a request's
         chain: a one-segment ragged batch on the paged layout of an
         attention-only model; otherwise the slot's whole prompt at batch 1
-        (``start`` is 0 there: no chunking). Returns the last stage's
-        logits at the final row, (1, 1, V). Prefix embeddings (VLM
+        (``start`` is 0 there: no chunking), through the slot's table row
+        on the paged layout. Returns the last stage's logits at the final
+        row, (1, 1, V). Prefix embeddings (VLM
         prefixes) are not ported: ``Engine.submit`` refuses them."""
         if self.paged and self._attn_only:
             h = self.forward_batch([(slot, list(tokens), start)])
@@ -133,8 +136,9 @@ class ModelRunner:
         h = self._to_dev(np.asarray([list(tokens)], np.int32))
         positions = self._to_dev(np.arange(start, start + n,
                                            dtype=np.int32)[None])
+        bt = self._tables()[slot:slot + 1] if self.paged else None
         for w in self.workers:
-            h = w.prefill_slot(h, slot, positions)
+            h = w.prefill_slot(h, slot, positions, block_tables=bt)
         return h
 
     def decode(self, reqs: Sequence, skip_slots: Sequence[int] = ()):

@@ -7,10 +7,10 @@ Two attention KV layouts, as in the reference:
   * paged: a shared page pool (P, N, bs, Hkv, hd) per attention period,
     addressed through the block tables the engine's BlockManager hands out.
 
-Recurrent mixer states (rwkv's ``shift``/``wkv``) stay slot-indexed in
-both layouts. The forwards write new K/V and states into the caches in
-place, and so do ``copy_pages``, ``write_page`` and ``clear_slot`` (the
-reference rebuilt each cache array functionally).
+Recurrent mixer states (rwkv's ``shift``/``wkv``, mamba's ``conv``/``h``)
+stay slot-indexed in both layouts. The forwards write new K/V and states
+into the caches in place, and so do ``copy_pages``, ``write_page`` and
+``clear_slot`` (the reference rebuilt each cache array functionally).
 """
 
 from __future__ import annotations
@@ -95,34 +95,43 @@ class StageWorker:
         return transformer.head(cfg, self.params, sel)
 
     @torch.no_grad()
-    def prefill_slot(self, x_in, slot: int, positions):
+    def prefill_slot(self, x_in, slot: int, positions, block_tables=None):
         """Prefill of one request (batch 1 inputs: tokens (1, S) on the
         first stage, hidden (1, S, d) after) over its whole prompt, into
         cache slot ``slot``, written in place: contiguous K/V land at rows
         [0, S) of the slot's strips, and every recurrent state of the slot
         starts from zero (the reference scattered a fresh batch-1 cache into
         the slot; idle decode steps leave drift in a free slot's states).
-        On the paged layout only a model without attention prefills here:
-        attention-only models ride ``forward_ragged``. Last stage returns
-        the final row's logits (1, 1, V)."""
-        if self.paged and any(transformer.is_attn_cache(sub)
-                              for sub in self.cache.values()):
-            raise ValueError("paged attention prefills ride forward_ragged;"
-                             " prefill_slot serves the slot-contiguous "
-                             "layout and attention-free models")
+        On the paged layout the attention slots write into the live shared
+        pools through ``block_tables`` (1, nb), the slot's table row (a
+        hybrid model's prefill; an attention-only model rides
+        ``forward_ragged``). Last stage returns the final row's logits
+        (1, 1, V)."""
+        if self.paged and block_tables is None and any(
+                transformer.is_attn_cache(sub)
+                for sub in self.cache.values()):
+            raise ValueError("a paged prefill writes the attention pools "
+                             "through the slot's block-table row: pass "
+                             "block_tables")
         cfg = self.cfg
         if self.first:
             x = transformer.embed(cfg, self.params, x_in, positions,
                                   dtype=self.model.dtype)
         else:
             x = x_in
-        strip = tree_map(lambda a: a[:, slot:slot + 1], self.cache)
-        for sub in strip.values():
+        strip = {}
+        for name, sub in self.cache.items():
+            if self.paged and transformer.is_attn_cache(sub):
+                strip[name] = sub                 # the shared pools
+                continue
+            strip[name] = {leaf: a[:, slot:slot + 1]
+                           for leaf, a in sub.items()}
             if not transformer.is_attn_cache(sub):
-                for arr in sub.values():
+                for arr in strip[name].values():
                     arr.zero_()
         x, _ = transformer.run_blocks(cfg, self.params["blocks"], x,
-                                      positions, cache=strip)
+                                      positions, cache=strip,
+                                      block_tables=block_tables)
         return transformer.head(cfg, self.params, x[:, -1:]) \
             if self.last else x
 

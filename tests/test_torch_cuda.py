@@ -1,8 +1,8 @@
 """The port's CUDA kernels on the card, held against their plain PyTorch
 versions (``repro_torch.kernels.ref``) on the same inputs: the paged
 kernels (ragged, paged decode), the slot-contiguous ones (flash, decode)
-and the WKV6 recurrence, and the engines (both layouts, granite and rwkv)
-against the CPU. Every test needs
+and the WKV6 recurrence, and the engines (both layouts; granite, rwkv,
+qwen2-moe and jamba) against the CPU. Every test needs
 a CUDA card (marker ``cuda``) and skips without one. The file imports
 neither JAX nor the reference package, so it runs where only the port's
 dependencies are installed:
@@ -825,6 +825,103 @@ def test_cuda_rwkv_engine_matches_cpu(cuda, paged):
     assert counts["wkv6"] > 0
     assert sum(counts.values()) == counts["wkv6"]
     assert streams[0] == streams[1]
+
+
+# (arch, engine options, the kernels its path launches)
+FAMILY_ENGINES = [
+    ("qwen2-moe-a2.7b", dict(paged=True),
+     ("ragged_paged_attention", "paged_decode_attention")),
+    ("qwen2-moe-a2.7b", dict(paged=True, fused=True),
+     ("ragged_paged_attention",)),
+    ("qwen2-moe-a2.7b", dict(paged=True, kv_dtype="int8"),
+     ("ragged_paged_attention_q8",)),
+    ("qwen2-moe-a2.7b", dict(paged=False),
+     ("flash_attention", "decode_attention")),
+    ("jamba-v0.1-52b", dict(paged=True),
+     ("flash_attention", "paged_decode_attention")),
+    ("jamba-v0.1-52b", dict(paged=False),
+     ("flash_attention", "decode_attention")),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "arch,kw,kernels", FAMILY_ENGINES,
+    ids=["moe-paged", "moe-fused", "moe-int8", "moe-contiguous",
+         "jamba-paged", "jamba-contiguous"])
+def test_cuda_moe_and_hybrid_engines_match_cpu(cuda, arch, kw, kernels):
+    """The qwen2-moe and jamba smoke models (jamba at 16 layers: attention
+    twice, mamba 14 times, MoE 8 times) served on the card against the
+    same engine on the CPU: equal greedy tokens, with slots reused, and
+    only the path's attention kernels launched. jamba's paged prefill
+    writes its K/V into the pools and runs the flash kernel."""
+    import dataclasses
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.models.model import Model
+    from repro_torch.serving.api import SamplingParams
+    from repro_torch.serving.engine import Engine
+    cfg = smoke_variant(get_config(arch))
+    if arch.startswith("jamba"):
+        cfg = dataclasses.replace(cfg, n_layers=16)
+    params = Model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    prompts = [[1, 2, 3, 4, 5, 6, 7], [9, 8, 7, 6, 5], [3, 1, 4, 1, 5]]
+    streams = []
+    for dev in ("cpu", "cuda"):
+        eng = Engine(cfg, [_tree_to(params, dev)], max_batch=2, max_seq=32,
+                     block_size=8, device=dev, **kw)
+        reqs = [eng.submit(p, SamplingParams(max_new=5)) for p in prompts]
+        ops.reset_launch_counts()
+        eng.run()
+        streams.append([list(r.generated) for r in reqs])
+    counts = ops.launch_counts()
+    assert all(counts[k] > 0 for k in kernels), counts
+    assert sum(counts.values()) == sum(counts[k] for k in kernels), counts
+    assert streams[0] == streams[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["ragged", "paged_decode", "flash",
+                                    "decode"])
+def test_cuda_attention_kernels_at_qwen2_moe_geometry(cuda, kernel):
+    """qwen2-moe-a2.7b's attention: 16 q and 16 kv heads (GQA group 1), hd
+    128, bf16, page 16. Each kernel takes its tensor-core body and holds
+    every output row within its limit of the float32 plain version."""
+    hq = hkv = 16
+    hd = 128
+    ops.reset_launch_counts()
+    if kernel == "ragged":
+        q, k, v, tb, row, pos = _to(cuda, _ragged(LONG, hq, hkv, hd, 16,
+                                                  seed=11))
+        q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+        got = ragged_attention.ragged_paged_attention(q, k, v, tb, row, pos)
+        want = ref.ragged_paged_attention_reference(
+            q.float(), k.float(), v.float(), tb, row, pos)
+        name = "ragged_paged_attention"
+    elif kernel == "paged_decode":
+        q, k, v, tb, kl = _to(cuda, _decode(SPLIT_LENS[0], hq, hkv, hd, 16,
+                                            seed=12))
+        q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+        got = decode_attention.paged_decode_attention(q, k, v, tb, kl)
+        want = ref.paged_decode_attention_reference(
+            q.float(), k.float(), v.float(), tb, kl)
+        name = "paged_decode_attention"
+    elif kernel == "flash":
+        q, k, v = [a.to(cuda, torch.bfloat16)
+                   for a in _qkv(1, 300, 300, hq, hkv, hd, seed=13)]
+        got = flash_attention.flash_attention(q, k, v)
+        want = ref.mha_reference(q.float(), k.float(), v.float())
+        name = "flash_attention"
+    else:
+        q, k, v, kl = _contig_decode(SPLIT_LENS[0], 1024, hq, hkv, hd,
+                                     seed=14)
+        q, k, v = [a.to(cuda, torch.bfloat16) for a in (q, k, v)]
+        kl = kl.to(cuda)
+        got = decode_attention.decode_attention(q, k, v, kl)
+        want = ref.decode_attention_reference(q.float(), k.float(),
+                                              v.float(), kl)
+        name = "decode_attention"
+    assert _bodies(name) == (1, 0)
+    _assert_rows_close(got, want)
 
 
 # ---------------------------------------------------------------------------

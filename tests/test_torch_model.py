@@ -309,10 +309,16 @@ def test_rwkv_prefill_then_decode_equals_the_full_forward(rwkv):
 
 def test_rwkv_paged_prefill_is_refused(rwkv):
     """The ragged route is attention-only (the reference's
-    ``serving/runner.py`` sends a recurrent model elsewhere)."""
+    ``serving/runner.py`` sends a recurrent model elsewhere): a recurrent
+    model's paged prefill runs outside it, and int8 pages, which only the
+    ragged step serves, are refused."""
     _, _, tcfg, tparams = rwkv
+    toks = torch.tensor([[1, 2, 3]])
     with pytest.raises(ValueError, match="attention-only"):
-        Model(tcfg).prefill(tparams, torch.tensor([[1, 2, 3]]), 16)
+        Model(tcfg).prefill(tparams, toks, 16, kv_dtype="int8")
+    paged, _ = Model(tcfg).prefill(tparams, toks, 16)
+    contiguous, _ = Model(tcfg).prefill(tparams, toks, 16, paged=False)
+    torch.testing.assert_close(paged, contiguous, atol=0, rtol=0)
 
 
 @pytest.mark.parametrize("paged", [False, True])

@@ -161,9 +161,30 @@ def test_not_ported_options_raise():
         Engine(cfg, [params], device="cpu", kv_tier=KVBlockStore())
     with pytest.raises(ValueError, match="paged"):
         Engine(cfg, [params], device="cpu", paged=False, sanitize=True)
-    # mamba, MoE and enc-dec are refused; attention and rwkv are served
+    # only enc-dec is refused: attention (dense or MoE), rwkv and mamba are
+    # served
     import dataclasses
+    with pytest.raises(NotImplementedError, match="not ported"):
+        Model(dataclasses.replace(cfg, encoder_layers=2)).defs
     for kw in ({"mixer_pattern": ("rwkv", "mamba")},
-               {"mlp_pattern": ("moe",)}, {"encoder_layers": 2}):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            Model(dataclasses.replace(cfg, **kw)).defs
+               {"mlp_pattern": ("moe",), "n_experts": 4, "top_k": 2,
+                "expert_d_ff": 32}):
+        assert Model(dataclasses.replace(cfg, **kw)).defs["blocks"]
+
+
+def test_every_reference_config_is_registered_with_equal_fields():
+    """The port copies every config the reference registers, field for
+    field, and the smoke variants derive alike."""
+    import dataclasses
+    from repro.configs import get_config as jget
+    from repro.configs import list_configs as jlist
+    from repro.configs import smoke_variant as jsmoke
+    from repro_torch.configs import get_config, list_configs, smoke_variant
+    names = jlist()
+    assert len(names) >= 13
+    assert set(names) <= set(list_configs())
+    for name in names:
+        assert dataclasses.asdict(get_config(name)) == \
+            dataclasses.asdict(jget(name)), name
+        assert dataclasses.asdict(smoke_variant(get_config(name))) == \
+            dataclasses.asdict(jsmoke(jget(name))), name
