@@ -14,6 +14,7 @@ NVIDIA H100.
     python3 chip_smoke.py --tier      # build, then phase 7 alone
     python3 chip_smoke.py --fleet     # build, then phase 8 alone
     python3 chip_smoke.py --families  # build, then phase 9 alone
+    python3 chip_smoke.py --encdec-vlm  # build, then phase 10 alone
 
 Run from the root of a checkout. Phases:
 
@@ -144,6 +145,21 @@ Run from the root of a checkout. Phases:
    attention kernels on the tensor cores. Reported: the wall GB/s of every
    ``materialize()`` and ``full_params``, the fleet's metrics and cold
    starts (simulated), the peak allocated memory.
+9. sparse experts and Mamba (``FAMILIES``, ``G1``): see ``families_phase``.
+10. the encoder-decoder and image prefixes (``ENCDEC_VLM``): the four
+   attention kernels at whisper-small's shapes (hd 64, group 1: the
+   non-causal encoder over 1,500 frames, cross-attention of a chunk and
+   of one row over them, the decoder's prefill and contiguous decode) and
+   llava-next-34b's (group 7: the 988-row prefix prefill, both decode
+   kernels, the ragged kernel over bf16 and int8 pages), held against
+   their plain versions and timed (``ENCDEC_VLM_KERNELS``); whisper-small
+   at full width and depth through ``Model.prefill(frames=...)`` and 31
+   decode steps at batch 4, its logits held to one full decoder forward;
+   llava-next-34b at full width and depth (64.05 GiB) through paged and
+   contiguous endpoints, 2-stage consolidated == 1-stage on each, with
+   three 576-row image prefixes and one text-only request, and fused
+   engines that refuse a prefix before admitting it; then each example
+   twin of ``repro_torch.examples`` once on the card.
 
 Any failed check raises, and the script exits nonzero without a result
 line. On success the second-to-last line is the ``kernels`` JSON (every
@@ -357,15 +373,16 @@ def check_rows(name, got, want):
     return err, ratio
 
 
-def sdpa_flash(torch, q, k, v):
-    """One causal SDPA call on (B,H,S,hd) layouts with K/V heads repeated
-    to Hq (made before timing)."""
+def sdpa_flash(torch, q, k, v, causal=True):
+    """One SDPA call (causal unless told) on (B,H,S,hd) layouts with K/V
+    heads repeated to Hq (made before timing)."""
     import torch.nn.functional as F
     rep = q.shape[2] // k.shape[2]
     qq = q.transpose(1, 2).contiguous()
     kk = k.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous()
     vv = v.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous()
-    return lambda: F.scaled_dot_product_attention(qq, kk, vv, is_causal=True)
+    return lambda: F.scaled_dot_product_attention(qq, kk, vv,
+                                                  is_causal=causal)
 
 
 def sdpa_contig_decode(torch, q, k, v, kv_len):
@@ -784,15 +801,18 @@ def wkv6_cost(r, w, state):
 
 
 def drive(torch, ep, prompts, consolidate_after=None, consolidate=None,
-          profile_at=None):
+          profile_at=None, prefixes=None):
     """Serve ``prompts`` through ``ep`` to the end, timing each step (host
-    clock around a synchronised step). With ``consolidate_after``, the
-    endpoint is consolidated by ``consolidate()`` once every request has
-    that many tokens. With ``profile_at``, the steps from that index on run
+    clock around a synchronised step); ``prefixes`` (one per prompt, None
+    where a request has none) are image prefixes. With
+    ``consolidate_after``, the endpoint is consolidated by
+    ``consolidate()`` once every request has that many tokens. With ``profile_at``, the steps from that index on run
     under the profiler (``profile_steps``) instead of the clock. Returns
     (streams, per-step records, profile or None)."""
     from repro_torch.serving.api import SamplingParams
-    reqs = [ep.submit(p, SamplingParams(max_new=MAX_NEW)) for p in prompts]
+    prefixes = prefixes or [None] * len(prompts)
+    reqs = [ep.submit(p, SamplingParams(max_new=MAX_NEW), prefix_embeds=pre)
+            for p, pre in zip(prompts, prefixes)]
     steps, prof = [], None
     while ep.has_work():
         if (consolidate_after is not None and ep.n_stages > 1
@@ -806,7 +826,7 @@ def drive(torch, ep, prompts, consolidate_after=None, consolidate=None,
                 f"{ep.last_migration_bytes} KV bytes moved")
         if prof is None and profile_at is not None \
                 and len(steps) == profile_at:
-            prof = profile_steps(torch, ep)
+            prof = profile_steps(torch, ep.step)
             continue
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -817,8 +837,8 @@ def drive(torch, ep, prompts, consolidate_after=None, consolidate=None,
     return [list(r.generated) for r in reqs], steps, prof
 
 
-def profile_steps(torch, ep, n=4):
-    """Run ``n`` steps of ``ep`` under ``torch.profiler``: the device time
+def profile_steps(torch, step, n=4):
+    """Run ``step()`` ``n`` times under ``torch.profiler``: the device time
     its kernels took per step (summed over kernels; one stream, so they do
     not overlap), the profiled wall time per step, and the kernels with
     the most device time. The profiler's own overhead lengthens the wall
@@ -831,7 +851,7 @@ def profile_steps(torch, ep, n=4):
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            ep.step()
+            step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kern = {}
@@ -873,19 +893,18 @@ def check_bodies(counts, label):
     return bodies
 
 
-def profiled_prefill(torch, model, params, tokens, kw, names):
-    """One forward of ``tokens`` through ``Model.prefill(**kw)`` under
-    ``torch.profiler``, after one warm-up forward: the forward's device ms
-    (all kernels; one stream), the ms of the kernels whose ``__global__``
-    names are in ``names``, the profiled wall ms and the top kernels."""
+def profiled_call(torch, fn, names):
+    """``fn()`` once under ``torch.profiler`` after one warm-up call: its
+    device ms (all kernels; one stream), the ms of the kernels named in
+    ``names``, the profiled wall ms and the top kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    model.prefill(params, tokens, 1024, **kw)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.prefill(params, tokens, 1024, **kw)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kern = {e.key: e.device_time_total / 1e3 for e in prof.key_averages()
@@ -895,6 +914,13 @@ def profiled_prefill(torch, model, params, tokens, kw, names):
     top = sorted(kern.items(), key=lambda kv: -kv[1])[:5]
     return (sum(kern.values()), ours, wall * 1e3,
             {k[:60]: v for k, v in top})
+
+
+def profiled_prefill(torch, model, params, tokens, kw, names):
+    """One forward of ``tokens`` through ``Model.prefill(**kw)`` under
+    ``torch.profiler``, after one warm-up forward (``profiled_call``)."""
+    return profiled_call(torch, lambda: model.prefill(params, tokens, 1024,
+                                                      **kw), names)
 
 
 def prefill_profile(torch, model, params, prompt):
@@ -2344,7 +2370,7 @@ def family_params(torch, name, n_layers=None):
 
 
 def family_path(torch, label, ep, prompts, expect, absent=(),
-                consolidate=None):
+                consolidate=None, prefixes=None):
     """Serve ``prompts`` through ``ep`` with every launch counted from 0,
     consolidating after 4 tokens where ``consolidate`` is given, with 4
     decode steps from step ``PROFILE_AT`` profiled. Every kernel in
@@ -2356,7 +2382,7 @@ def family_path(torch, label, ep, prompts, expect, absent=(),
     ops.reset_launch_counts()
     streams, steps, prof = drive(
         torch, ep, prompts, consolidate_after=4 if consolidate else None,
-        consolidate=consolidate, profile_at=PROFILE_AT)
+        consolidate=consolidate, profile_at=PROFILE_AT, prefixes=prefixes)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     if consolidate is not None and ep.n_stages != 1:
@@ -2751,6 +2777,477 @@ def families_phase(torch):
     return total, g1
 
 
+# ---------------------------------------------------------------------------
+# phase 10: whisper-small's encoder-decoder and llava-next-34b's image
+# prefixes (ENCDEC_VLM)
+# ---------------------------------------------------------------------------
+
+WHISPER_MAX_SEQ = 448     # whisper's decoder context (448 positions)
+ENCDEC_REL = 2.0 ** -5    # bf16 decode logits vs one full forward, of max
+VLM_TEXT_ONLY = 3         # llava's request without an image (190 tokens)
+VLM_IMAGE_ROWS = 576      # llava's image prefix rows (n_image_tokens)
+ENCDEC_VLM_TITLE = ("== encoder-decoder and image prefixes: whisper-small "
+                    "and llava-next-34b (full width and depth)")
+
+
+def flash_pairs(b, sq, sk, causal):
+    """(query, key) pairs flash attends: a causal row t sees min(t+1, Sk)
+    keys."""
+    if not causal:
+        return b * sq * sk
+    return b * sum(min(t + 1, sk) for t in range(sq))
+
+
+def encdec_vlm_kernel_phase(torch, reps, flush):
+    """The four attention kernels at whisper-small's shapes (hd 64, Hq =
+    Hkv = 12: the non-causal encoder over 1,500 frames at batch 1, the
+    path's, and 4; the causal decoder prefill of 412 tokens;
+    cross-attention of 412 rows and of one row a request at batch 4 over
+    the 1,500 frames; contiguous decode at batch 4, S 448, kv_len
+    316/273/428/206) and llava-next-34b's (Hq 56 over Hkv 8, hd 128, GQA
+    group 7: the 988-row prefix prefill; paged and contiguous decode at
+    kv_len 892/849/1,004/206 under a table of 65 pages and S 1,024; the
+    ragged kernel's mixed batch over bf16 and int8 pages), each launched
+    once on its tensor-core body (``ops.body_counts``) and held row by row
+    against its float32 plain version, then timed beside its bound, its
+    plain version and one library call. Printed as ``ENCDEC_VLM_KERNELS``;
+    returns {label: row}."""
+    from repro_torch.kernels import decode_attention as kda
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ragged_attention as kra
+    g = torch.Generator(device="cuda").manual_seed(31)
+    rows = {}
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").bfloat16()
+
+    def one(label, name, fn, plain, library, nbytes, flops):
+        ops.reset_launch_counts()
+        got = fn()
+        torch.cuda.synchronize()
+        bodies = ops.body_counts()
+        if (bodies[f"{name}/tensor_core"], bodies[f"{name}/cuda_core"]) \
+                != (1, 0):
+            raise AssertionError(f"{label}: not on the tensor cores "
+                                 f"({bodies})")
+        err = check_rows(label, got, plain(True))
+        b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS)
+        rows[label] = dict(
+            kernel=name, **kernel_ms(torch, fn, reps, flush),
+            plain_ms=time_ms(torch, lambda: plain(False), max(3, reps // 4),
+                             1, flush),
+            library_ms=time_ms(torch, library, reps, flush=flush),
+            bound_ms=b_ms, bound_by=b_by, max_abs_err=err[0],
+            err_over_tol=err[1])
+
+    def flash(label, b, sq, sk, hq, hkv, hd, causal):
+        q, k, v = randn(b, sq, hq, hd), randn(b, sk, hkv, hd), \
+            randn(b, sk, hkv, hd)
+        one(label, "flash_attention",
+            lambda: kfa.flash_attention(q, k, v, causal=causal),
+            lambda f32: ref.mha_reference(
+                *(a.float() if f32 else a for a in (q, k, v)), causal=causal),
+            sdpa_flash(torch, q, k, v, causal),
+            2 * (2 * q.numel() + k.numel() + v.numel()),
+            4 * hq * hd * flash_pairs(b, sq, sk, causal))
+
+    def decode(prefix, lens, hq, hkv, hd, s, paged):
+        kl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        qd = randn(len(lens), 1, hq, hd)
+        nbytes = (sum(lens) * 2 * hkv * hd * 2 + 2 * qd.numel() * 2
+                  + kl.numel() * 4)
+        flops = sum(4 * hq * hd * n for n in lens)
+        if not paged:
+            kc, vc = randn(len(lens), s, hkv, hd), randn(len(lens), s, hkv,
+                                                         hd)
+            one(f"{prefix} contiguous decode", "decode_attention",
+                lambda: kda.decode_attention(qd, kc, vc, kl),
+                lambda f32: ref.decode_attention_reference(
+                    *(a.float() if f32 else a for a in (qd, kc, vc)), kl),
+                sdpa_contig_decode(torch, qd, kc, vc, kl), nbytes, flops)
+            return
+        nb = s // BS + 1
+        n_pages = len(lens) * nb + 1
+        tb = torch.randperm(n_pages - 1, generator=g, device="cuda").reshape(
+            len(lens), nb).to(torch.int32)
+        kp, vp = randn(n_pages, BS, hkv, hd), randn(n_pages, BS, hkv, hd)
+        one(f"{prefix} paged decode", "paged_decode_attention",
+            lambda: kda.paged_decode_attention(qd, kp, vp, tb, kl),
+            lambda f32: ref.paged_decode_attention_reference(
+                *(a.float() if f32 else a for a in (qd, kp, vp)), tb, kl),
+            sdpa_decode(torch, qd, kp, vp, tb, kl),
+            nbytes + tb.numel() * 4, flops)
+
+    wh = (12, 12, 64)
+    lv = (56, 8, 128)
+    flash("whisper encoder B1", 1, 1500, 1500, *wh, False)
+    flash("whisper encoder B4", 4, 1500, 1500, *wh, False)
+    flash("whisper decoder prefill", 1, 412, 412, *wh, True)
+    flash("whisper cross prefill", 1, 412, 1500, *wh, False)
+    flash("whisper cross decode", 4, 1, 1500, *wh, False)
+    decode("whisper", [316, 273, 428, 206], *wh, WHISPER_MAX_SEQ, False)
+    flash("llava prefix prefill", 1, VLM_IMAGE_ROWS + 412,
+          VLM_IMAGE_ROWS + 412, *lv, True)
+    lens = [VLM_IMAGE_ROWS + n + 16 for n in (300, 257, 412)] + [190 + 16]
+    decode("llava", lens, *lv, ENGINE_S, False)
+    decode("llava", lens, *lv, ENGINE_S, True)
+
+    q, k32, v32, tb, row, pos = ragged_batch(torch, *lv[:2], lv[2], BS,
+                                             torch.bfloat16, 32)
+    k, v = k32.bfloat16(), v32.bfloat16()
+    one("llava ragged bf16 pages", "ragged_paged_attention",
+        lambda: kra.ragged_paged_attention(q, k, v, tb, row, pos),
+        lambda f32: ref.ragged_paged_attention_reference(
+            q.float() if f32 else q, k.float() if f32 else k,
+            v.float() if f32 else v, tb, row, pos),
+        sdpa_ragged(torch, q, k, v, tb, row, pos),
+        *ragged_cost(q, 2 * lv[1] * lv[2] * 2, tb, row, pos, lv[1], lv[2]))
+    if not bool((kra.ragged_paged_attention(q, k, v, tb, row, pos)[pos < 0]
+                 == 0).all()):
+        raise AssertionError("llava ragged: pad rows are not exactly 0")
+    kq, ks, kz = ref.quantize_kv(k32)
+    vq, vs, vz = ref.quantize_kv(v32)
+    quant = {"k_scale": ks, "k_zero": kz, "v_scale": vs, "v_zero": vz}
+    one("llava ragged int8 pages", "ragged_paged_attention_q8",
+        lambda: kra.ragged_paged_attention(q, kq, vq, tb, row, pos,
+                                           kv_quant=quant),
+        lambda f32: ref.ragged_paged_attention_reference(
+            q.float() if f32 else q, kq, vq, tb, row, pos, kv_quant=quant),
+        sdpa_ragged(torch, q, ref.dequantize_kv(kq, ks, kz).bfloat16(),
+                    ref.dequantize_kv(vq, vs, vz).bfloat16(), tb, row, pos),
+        *ragged_cost(q, 2 * lv[1] * lv[2] + 4 * lv[1] * 4, tb, row, pos,
+                     lv[1], lv[2]))
+    for label, r in rows.items():
+        log(f"  {label} ({r['kernel']}): {r['ms']:.4f} ms (bound "
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']}, plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms; "
+            f"without the hold {r['ms_host_gap']:.4f} ms)")
+    log("ENCDEC_VLM_KERNELS " + json.dumps(rows))
+    return rows
+
+
+def whisper_family(torch, prompts):
+    """whisper-small at full width and depth (12 encoder and 12 decoder
+    layers, d 768, 12 heads of 64, 1,500 frames, padded vocab 52,224) on
+    random bf16 weights: each request (its own seeded stub frames, ×0.02)
+    through ``Model.prefill(frames=..., paged=False)`` at batch 1, the four
+    caches stacked on the batch axis, then 31 greedy ``Model.decode_step``s
+    at batch 4 (32 tokens a request), launches counted from 0 over that
+    run. Held: flash and contiguous decode launched (on the tensor cores),
+    the paged kernels and wkv6 not; each request's prefill and decode
+    logits at tokens 0, 1, 16 and 31 against one full decoder forward over
+    the same context, to ``ENCDEC_REL`` of its largest |logit|. Reported:
+    the encoder's and one 412-token prefill's device ms, the decode-step
+    p50 (host clock around a synchronised step) and its device ms (4
+    profiled steps)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import encdec
+    cfg, model, params, info = family_params(torch, "whisper-small")
+    g = torch.Generator(device="cuda").manual_seed(7)
+    frames = [(torch.randn((1, cfg.n_audio_frames, cfg.d_model),
+                           generator=g, device="cuda") * 0.02).bfloat16()
+              for _ in prompts]
+    toks = [torch.tensor([p], dtype=torch.int32, device="cuda")
+            for p in prompts]
+    lens = [len(p) for p in prompts]
+    label = "whisper prefill at batch 1 -> decode at batch 4, contiguous"
+
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    caches, logits = [], []
+    for t, f in zip(toks, frames):
+        lg, c = model.prefill(params, t, WHISPER_MAX_SEQ, frames=f,
+                              paged=False)
+        caches.append(c)
+        logits.append(lg)
+    cache = {part: {leaf: torch.cat([c[part][leaf] for c in caches], dim=1)
+                    for leaf in ("k", "v")} for part in ("self", "cross")}
+    del caches
+    logits = [torch.cat(logits)]
+    streams = [[t] for t in logits[0].argmax(-1).tolist()]
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    step_ms = []
+    for n in range(MAX_NEW - 1):
+        tok = torch.tensor([[s[-1]] for s in streams], dtype=torch.int32,
+                           device="cuda")
+        pos = torch.tensor([[n_ + n] for n_ in lens], dtype=torch.int32,
+                           device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = model.decode_step(params, cache, tok, pos)
+        nxt = lg.argmax(-1).tolist()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        logits.append(lg)
+        for s, x in zip(streams, nxt):
+            s.append(x)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    for k in ("flash_attention", "decode_attention"):
+        if counts[k] <= 0:
+            raise AssertionError(f"{label}: {k} never launched ({counts})")
+    for k in ("ragged_paged_attention", "ragged_paged_attention_q8",
+              "paged_decode_attention", "wkv6"):
+        if counts[k] != 0:
+            raise AssertionError(f"{label}: {k} launched ({counts})")
+    bodies = check_bodies(counts, label)
+    if not all(len(s) == MAX_NEW and all(0 <= t < cfg.vocab for t in s)
+               for s in streams):
+        raise AssertionError(f"{label}: bad streams {streams}")
+
+    # the card's test_decode_matches_full_forward
+    worst = []
+    for i, prompt in enumerate(prompts):
+        ckv = {leaf: cache["cross"][leaf][:, i:i + 1] for leaf in ("k", "v")}
+        for n in (0, 1, 16, MAX_NEW - 1):
+            ids = torch.tensor([prompt + streams[i][:n]], dtype=torch.int32,
+                               device="cuda")
+            pos = torch.arange(ids.shape[1], dtype=torch.int32,
+                               device="cuda")[None]
+            h, _ = encdec.decoder(cfg, params, ids, pos, cross_kv=ckv,
+                                  dtype=model.dtype)
+            full = encdec.head(cfg, params, h[:, -1])[0, :cfg.vocab].float()
+            got = logits[n][i, :cfg.vocab].float()
+            ratio = float((got - full).abs().max() / full.abs().max())
+            worst.append({"request": i, "token": n, "rel_err": ratio,
+                          "argmax_equal": int(got.argmax())
+                          == int(full.argmax())})
+    rel = max(w["rel_err"] for w in worst)
+    if not rel <= ENCDEC_REL:
+        raise AssertionError(f"whisper: decode logits leave the full "
+                             f"forward's by {rel:.4g} of their largest "
+                             f"|logit| (> {ENCDEC_REL})")
+    log(f"  whisper: prefill + decode logits within {rel:.4g} of the full "
+        f"forward's largest |logit| (limit {ENCDEC_REL:.4g}); argmax equal "
+        f"at {sum(w['argmax_equal'] for w in worst)} of {len(worst)}")
+
+    enc_ms, _, enc_wall, enc_top = profiled_call(
+        torch, lambda: encdec.encode(cfg, params, frames[2]),
+        ("flash_mma_kernel", "flash_kernel"))
+    pre_ms, pre_attn, pre_wall, pre_top = profiled_prefill(
+        torch, model, params, toks[2], dict(frames=frames[2], paged=False),
+        ("flash_mma_kernel", "flash_kernel"))
+    n_prof = 4
+    base = MAX_NEW - 1
+    tok = torch.tensor([[s[-1]] for s in streams], dtype=torch.int32,
+                       device="cuda")
+    it = iter(range(n_prof))
+
+    def step():
+        k = next(it)
+        pos = torch.tensor([[n_ + base + k] for n_ in lens],
+                           dtype=torch.int32, device="cuda")
+        model.decode_step(params, cache, tok, pos)
+
+    prof = profile_steps(torch, step, n=n_prof)
+    p50 = sorted(step_ms)[len(step_ms) // 2]
+    rec = {"model": info, "launches": counts, "bodies": bodies,
+           "streams_head": [s[:8] for s in streams],
+           "full_forward_check": worst, "full_forward_rel_max": rel,
+           "prefill_s_4_requests": prefill_s,
+           "prefill_tok_s": sum(lens) / prefill_s,
+           "decode_step_ms_p50": p50,
+           "decode_step_ms_p99": sorted(step_ms)[
+               min(len(step_ms) - 1, int(round(0.99 * (len(step_ms) - 1))))],
+           "decode_tok_s": 4 * len(step_ms) / (sum(step_ms) / 1e3),
+           "device_ms_per_decode_step": prof["device_ms_per_step"],
+           "busy": prof["device_ms_per_step"] / p50,
+           "decode_top_kernels_ms": prof["top_kernels_ms_per_step"],
+           "encoder_device_ms": enc_ms, "encoder_profiled_wall_ms": enc_wall,
+           "encoder_top_kernels_ms": enc_top,
+           "prefill_412_device_ms": pre_ms,
+           "prefill_412_flash_ms": pre_attn,
+           "prefill_412_profiled_wall_ms": pre_wall,
+           "prefill_412_top_kernels_ms": pre_top}
+    log(f"  {label}: 4 prefills in {prefill_s * 1e3:.1f} ms "
+        f"({rec['prefill_tok_s']:.1f} tok/s), decode step p50 {p50:.2f} ms "
+        f"p99 {rec['decode_step_ms_p99']:.2f} ms, device "
+        f"{rec['device_ms_per_decode_step']:.2f} ms a decode step (busy "
+        f"{rec['busy']:.3f}); encoder {enc_ms:.3f} device ms, 412-token "
+        f"prefill {pre_ms:.3f} device ms (flash {pre_attn:.3f}); launches "
+        f"{ {k: n for k, n in counts.items() if n} }")
+    return rec
+
+
+def vlm_family(torch):
+    """llava-next-34b at full width and depth (60 layers, d 7168, 56 q / 8
+    kv heads of 128, d_ff 20480, vocab 64000; 64.05 GiB of bf16 weights,
+    the stages views of them) through ``ServingEndpoint`` at batch 4,
+    ``max_seq`` 1,024: the main prompts, the first three each behind a
+    576-row image prefix (seeded, ×0.02), the fourth text-only. Paged
+    (chunks of 256) and contiguous, each as a 2-stage endpoint
+    consolidated after 4 tokens (the prefix rows' K/V migrate with the
+    rest) against a 1-stage one: streams equal exactly on each layout.
+    Then fused engines over bf16 and int8 pages with the text-only request
+    (a prefix request refused at ``submit`` first, nothing admitted).
+    Reported: the layouts' token agreement, each path's rates, decode-step
+    p50 and device ms; one 988-row prefix prefill profiled on each
+    layout."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.api import SamplingParams
+    from repro_torch.serving.endpoint import ServingEndpoint
+    from repro_torch.serving.engine import Engine
+    cfg, model, params, info = family_params(torch, "llava-next-34b")
+    prompts = main_prompts(cfg.vocab)
+    g = torch.Generator(device="cuda").manual_seed(8)
+    prefixes = [(torch.randn((VLM_IMAGE_ROWS, cfg.d_model), generator=g,
+                             device="cuda") * 0.02).bfloat16()
+                if i != VLM_TEXT_ONLY else None for i in range(len(prompts))]
+    paths, launches, bodies, streams = {}, {}, {}, {}
+
+    def run(label, ep, expect, absent, consolidate=None, sel=None):
+        sel = sel or list(range(len(prompts)))
+        s, c, b, st = family_path(
+            torch, label, ep, [prompts[i] for i in sel], expect, absent,
+            consolidate, prefixes=[prefixes[i] for i in sel])
+        paths[label], launches[label], bodies[label] = st, c, b
+        streams[label] = s
+        return s
+
+    layouts = {
+        "paged": (dict(FAM_KW, paged=True, prefill_chunk=256),
+                  ("flash_attention", "ragged_paged_attention",
+                   "paged_decode_attention"), ("decode_attention",)),
+        "contiguous": (dict(FAM_KW, paged=False),
+                       ("flash_attention", "decode_attention"),
+                       ("ragged_paged_attention", "paged_decode_attention")),
+    }
+    one = {}
+    for name, (kw, expect, absent) in layouts.items():
+        stages = [model.slice_stage_params(params, 2, i) for i in range(2)]
+        ep = ServingEndpoint(Engine(cfg, stages, **kw))
+        main = run(f"llava 2-stage -> consolidated, {name}", ep, expect,
+                   absent, consolidate=lambda: ep.consolidate(params))
+        del ep, stages
+        one[name] = run(f"llava 1-stage, {name}",
+                        ServingEndpoint(Engine(cfg, [params], **kw)), expect,
+                        absent)
+        if main != one[name]:
+            raise AssertionError(f"llava: 2-stage + consolidation streams "
+                                 f"differ from the 1-stage engine's on the "
+                                 f"{name} layout:\n{main}\n{one[name]}")
+        log(f"  streams: llava 2-stage + consolidation == 1-stage ({name})")
+    agree = agreement(one["contiguous"], one["paged"])
+    log(f"  llava contiguous vs paged streams: agree on {agree[0]:.3f} of "
+        f"tokens, first parting token of each request {agree[1]}")
+
+    fused = {}
+    for kv_dtype, kernel in ((None, "ragged_paged_attention"),
+                             ("int8", "ragged_paged_attention_q8")):
+        eng = Engine(cfg, [params], fused=True, kv_dtype=kv_dtype,
+                     **dict(FAM_KW, paged=True, prefill_chunk=256))
+        before = eng.stats()
+        try:
+            eng.submit(prompts[0], SamplingParams(max_new=MAX_NEW),
+                       prefix_embeds=prefixes[0])
+        except ValueError as e:
+            if "prefix_embeds" not in str(e):
+                raise
+        else:
+            raise AssertionError("llava fused: a prefix request was taken")
+        if eng.stats() != before or eng.queue or eng.has_work():
+            raise AssertionError("llava fused: the refused prefix request "
+                                 "left state behind")
+        label = f"llava 1-stage fused, {kv_dtype or 'bf16'} pages, text-only"
+        s = run(label, ServingEndpoint(eng), (kernel,),
+                ("paged_decode_attention", "flash_attention",
+                 "decode_attention"), sel=[VLM_TEXT_ONLY])
+        fused[label] = agreement(s, [one["paged"][VLM_TEXT_ONLY]])
+    log(f"  llava fused text-only stream vs the 1-stage paged one "
+        f"(share, first parting token): {fused}; a prefix request refused "
+        f"before admission on both")
+    del eng
+    tokens = torch.tensor([prompts[2]], dtype=torch.int32, device="cuda")
+    pre = prefixes[2][None]
+    prefill = {}
+    for name, kw in (("contiguous", dict(paged=False)),
+                     ("paged", dict(paged=True))):
+        ms, attn, wall, top = profiled_prefill(
+            torch, model, params, tokens, dict(kw, prefix_embeds=pre),
+            ("flash_mma_kernel", "flash_kernel"))
+        prefill[name] = {"rows": VLM_IMAGE_ROWS + len(prompts[2]),
+                         "device_ms": ms, "flash_ms": attn,
+                         "flash_share": attn / ms, "profiled_wall_ms": wall,
+                         "top_kernels_ms": top}
+        log(f"  llava prefix prefill of {VLM_IMAGE_ROWS} + {len(prompts[2])}"
+            f" rows, {name}: device {ms:.3f} ms, flash {attn:.3f} ms "
+            f"({attn / ms:.3f}); profiled wall {wall:.1f} ms")
+    return {"model": info, "paths": paths, "launches": launches,
+            "bodies": bodies, "contiguous_vs_paged": agree,
+            "fused_text_only_vs_paged": fused, "prefix_prefill": prefill}
+
+
+def example_twins(torch):
+    """Each of ``repro_torch.examples``' twins once on the card (their
+    smoke sizes, float32): its ``main()`` must print its OK line (the store
+    smoke's store goes to ``_smoke_store/`` in the checkout, deleted
+    after)."""
+    import contextlib
+    import importlib
+    import io
+    import shutil
+    out = {}
+    store = ROOT / "_smoke_store"
+    try:
+        for name in ("quickstart", "store_coldstart_smoke",
+                     "consolidation_demo", "streaming_demo"):
+            mod = importlib.import_module(f"repro_torch.examples.{name}")
+            kw = ({"store_dir": str(store / "twin")}
+                  if name == "store_coldstart_smoke" else {})
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                mod.main(device="cuda", **kw)
+            ok = [ln for ln in buf.getvalue().splitlines()
+                  if ln.startswith("OK:")]
+            if not ok:
+                raise AssertionError(f"example twin {name}: no OK line")
+            out[name] = {"ok": ok[-1], "s": time.perf_counter() - t0}
+            log(f"  twin {name} on the card: {ok[-1]} "
+                f"({out[name]['s']:.1f} s)")
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    return out
+
+
+def encdec_vlm_phase(torch):
+    """The ``ENCDEC_VLM`` phase: the attention kernels at whisper's and
+    llava's shapes, then whisper-small, then llava-next-34b (whisper freed
+    first), then the example twins. Returns every kernel's launches over
+    the phase's paths, and the kernel rows."""
+    import gc
+    from repro_torch.configs import get_config
+    t_phase = time.perf_counter()
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    kernels = encdec_vlm_kernel_phase(torch, 20, flush)
+    del flush
+    t0 = time.perf_counter()
+    whisper = whisper_family(torch, main_prompts(
+        get_config("whisper-small").vocab))
+    whisper["phase_s"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    llava = vlm_family(torch)
+    llava["phase_s"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    twins = example_twins(torch)
+    total = dict(whisper["launches"])
+    for counts in llava["launches"].values():
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+    rec = {"kernels": kernels, "whisper-small": whisper,
+           "llava-next-34b": llava, "example_twins": twins,
+           "launches": total, "phase_s": time.perf_counter() - t_phase}
+    log(f"  ENCDEC_VLM phase: {rec['phase_s']:.1f} s (whisper "
+        f"{whisper['phase_s']:.1f} s, llava {llava['phase_s']:.1f} s)")
+    log("ENCDEC_VLM " + json.dumps(rec))
+    return total, kernels
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -2800,6 +3297,9 @@ def main():
     ap.add_argument("--families", action="store_true",
                     help="build, then only the sparse-expert and Mamba "
                          "phase (no result line)")
+    ap.add_argument("--encdec-vlm", action="store_true",
+                    help="build, then only the encoder-decoder and image "
+                         "prefix phase (no result line)")
     args = ap.parse_args()
 
     import torch
@@ -2863,6 +3363,10 @@ def main():
         log(FAMILIES_TITLE)
         families_phase(torch)
         return
+    if args.encdec_vlm:
+        log(ENCDEC_VLM_TITLE)
+        encdec_vlm_phase(torch)
+        return
 
     log("== kernels vs plain versions")
     rows = kernel_phase(torch, args.quick)
@@ -2870,7 +3374,8 @@ def main():
     launches = {k: None for k in rows}
     fleet_launches = {k: None for k in rows}
     families_launches = {k: None for k in rows}
-    g1 = {}
+    encdec_vlm_launches = {k: None for k in rows}
+    g1, encdec_vlm = {}, {}
     if not args.quick:
         import gc
         from repro_torch.configs import get_config
@@ -2908,6 +3413,11 @@ def main():
         log(FAMILIES_TITLE)
         fam, g1 = families_phase(torch)
         families_launches = {k: fam.get(k, 0) for k in rows}
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(ENCDEC_VLM_TITLE)
+        ev, encdec_vlm = encdec_vlm_phase(torch)
+        encdec_vlm_launches = {k: ev.get(k, 0) for k in rows}
 
     kernels = []
     for name, source, replaces in KERNELS:
@@ -2916,6 +3426,7 @@ def main():
                         "replaces": replaces, "launches": launches[name],
                         "launches_fleet": fleet_launches[name],
                         "launches_families": families_launches[name],
+                        "launches_encdec_vlm": encdec_vlm_launches[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
@@ -2924,7 +3435,12 @@ def main():
                         "g1": ({k: g1[name][k] for k in (
                             "ms", "plain_ms", "bound_ms", "bound_by",
                             "library_ms", "max_abs_err")}
-                            if name in g1 else None)})
+                            if name in g1 else None),
+                        "encdec_vlm": {label: {k: r[k] for k in (
+                            "ms", "plain_ms", "bound_ms", "bound_by",
+                            "library_ms", "max_abs_err")}
+                            for label, r in encdec_vlm.items()
+                            if r["kernel"] == name}})
     # every pl.pallas_call of the repo has its kernel above
     print(json.dumps({"kernels": kernels, "not_ported": []}))
     print(json.dumps({"ok": True, "device": {

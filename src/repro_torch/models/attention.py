@@ -14,10 +14,15 @@
   K/V at [0, S); a decode step writes each row's new K/V at its position
   and attends the strip through ``ops.decode_attention``.
 
+Cross-attention (the encoder-decoder's, ``cross_attention``) attends a
+decoder chunk over the encoder memory's K/V, precomputed once per request
+(``precompute_cross_kv``), through ``ops.flash_attention`` with
+``causal=False``: Sq is the chunk (1 on a decode step), Sk the frames.
+
 Where JAX rebuilt the caches functionally, the port writes into them in
 place (``paged_kv_write``, ``ragged_kv_write``, the contiguous writes).
 Not ported: the reference's ``append`` decode mode (an environment knob
-with no kernel of its own) and cross-attention.
+with no kernel of its own).
 """
 
 from __future__ import annotations
@@ -269,3 +274,24 @@ def self_attention(cfg: ModelConfig, p: dict, x, *, positions,
     b, s, hq, hd = out.shape
     y = out.reshape(b, s, hq * hd) @ p["w_o"].to(x.dtype)
     return y, new_cache
+
+
+def cross_attention(cfg: ModelConfig, p: dict, x, mem_kv: Tuple):
+    """Encoder-decoder cross attention of x (B,S,d) over the precomputed
+    memory K/V ``mem_kv`` = (k, v), each (B,Sm,Hkv,hd): the serve path
+    (the reference's ``memory=`` branch, which projects them inline, is
+    training's). Returns (B,S,d)."""
+    k, v = mem_kv
+    q = _project(cfg, p, x, "q", cfg.n_heads)
+    out = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                              causal=False)
+    b, s, hq, hd = out.shape
+    return out.reshape(b, s, hq * hd) @ p["w_o"].to(x.dtype)
+
+
+def precompute_cross_kv(cfg: ModelConfig, p: dict, memory):
+    """One decoder layer's cross K/V of the encoder memory (B,Sm,d): (k, v),
+    each (B,Sm,Hkv,hd)."""
+    k = _project(cfg, p, memory, "k", cfg.n_kv_heads)
+    v = _project(cfg, p, memory, "v", cfg.n_kv_heads)
+    return k, v

@@ -1,6 +1,8 @@
 """Model facade: ParamDef trees, init, one-shot prefill / decode entry
 points over the paged or the slot-contiguous KV layout, and the
-stage-slicing API used by pipeline-parallel cold starts."""
+stage-slicing API used by pipeline-parallel cold starts. The
+encoder-decoder family (``models/encdec.py``) prefills and decodes on the
+slot-contiguous layout only, as in the reference."""
 
 from __future__ import annotations
 
@@ -12,7 +14,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ragged_attention import TILE_Q
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.models.common import (ParamDef, as_dtype, init_params,
                                        param_bytes, tree_map)
 
@@ -24,6 +26,8 @@ class Model:
     # ------------------------------------------------------------- params
     @property
     def defs(self) -> dict:
+        if self.cfg.is_encdec:
+            return encdec.encdec_defs(self.cfg)
         return transformer.lm_defs(self.cfg)
 
     @property
@@ -44,7 +48,8 @@ class Model:
 
     # ------------------------------------------------------------- serving
     def prefill(self, params, tokens, max_seq: int, *, page_size: int = 16,
-                kv_dtype=None, paged: bool = True):
+                kv_dtype=None, paged: bool = True, prefix_embeds=None,
+                frames=None):
         """Full-prompt pass of ``tokens`` (B,S). ``paged=True``: into fresh
         paged pools (each sequence owns ``ceil(max_seq / page_size)``
         pages; the last page is the trash page), stored as ``kv_dtype``
@@ -58,16 +63,34 @@ class Model:
         into fresh slot-contiguous slabs (the reference's
         ``Model.prefill``); the cache is the per-period {"k", "v"} slabs.
         Recurrent slots (rwkv's {"shift", "wkv"}, mamba's {"conv", "h"})
-        carry their states from zero on either layout. Returns (last-token
-        logits (B,V), cache)."""
+        carry their states from zero on either layout.
+
+        ``prefix_embeds`` (B,P,d), a VLM's image patch embeddings, go before
+        the tokens (positions [0, P+S)): such a prefill never takes the
+        ragged step (its token axis carries token ids only), so on the
+        paged layout it writes its K/V into the pools and attends through
+        ``flash_attention``. An encoder-decoder model takes ``frames``
+        (B,F,d), stub frame embeddings, and ``paged=False`` (the reference
+        has no paged encoder-decoder): its cache is {"self": the decoder's
+        slabs, "cross": the encoder memory's per-layer K/V}. Returns
+        (last-token logits (B,V), cache)."""
         cfg = self.cfg
         dev = params["final_norm"].device
         b, s = tokens.shape
-        ragged = paged and transformer.attn_only(cfg)
+        if cfg.is_encdec:
+            return self._encdec_prefill(params, tokens.to(dev), max_seq,
+                                        frames, paged)
+        if frames is not None:
+            raise ValueError(f"{cfg.name} is no encoder-decoder: it takes "
+                             f"no frames")
+        prefix = None if prefix_embeds is None else prefix_embeds.to(dev)
+        total = s + (0 if prefix is None else prefix.shape[1])
+        ragged = paged and transformer.attn_only(cfg) and prefix is None
         if paged and not ragged and kv_dtype is not None \
                 and as_dtype(kv_dtype) == torch.int8:
             raise ValueError(f"{cfg.name}: int8 pages are served by the "
-                             f"ragged step, which is attention-only")
+                             f"ragged step, which is attention-only and "
+                             f"takes no prefix")
         nb = -(-max_seq // page_size)
         tables = (torch.arange(b * nb, dtype=torch.int32,
                                device=dev).reshape(b, nb)
@@ -93,10 +116,10 @@ class Model:
                                           ragged=(tables, row, pos[0] >= 0))
             last = x[0].reshape(b, sa, -1)[:, s - 1]
         else:
-            pos = torch.arange(s, dtype=torch.int32,
-                               device=dev)[None].expand(b, s)
+            pos = torch.arange(total, dtype=torch.int32,
+                               device=dev)[None].expand(b, total)
             x = transformer.embed(cfg, params, tokens.to(dev), pos,
-                                  dtype=self.dtype)
+                                  prefix_embeds=prefix, dtype=self.dtype)
             x, _ = transformer.run_blocks(cfg, params["blocks"], x, pos,
                                           cache=cache, block_tables=tables)
             last = x[:, -1]
@@ -105,11 +128,38 @@ class Model:
             return logits, {"pools": cache, "block_tables": tables}
         return logits, cache
 
+    def _encdec_prefill(self, params, tokens, max_seq: int, frames,
+                        paged: bool):
+        cfg = self.cfg
+        if paged:
+            raise ValueError(f"{cfg.name}: an encoder-decoder prefills on "
+                             f"the slot-contiguous layout only (paged=False)"
+                             f"; the reference has no paged encoder-decoder")
+        if frames is None:
+            raise ValueError(f"{cfg.name}: an encoder-decoder prefill takes "
+                             f"the stub frame embeddings (frames=)")
+        dev = tokens.device
+        b, s = tokens.shape
+        memory = encdec.encode(cfg, params, frames.to(dev, self.dtype))
+        cross_kv = encdec.precompute_cross_kv(cfg, params, memory)
+        cache = encdec.init_self_cache(cfg, b, max_seq, self.dtype,
+                                       device=dev)
+        pos = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(b, s)
+        h, cache = encdec.decoder(cfg, params, tokens, pos, cross_kv=cross_kv,
+                                  self_cache=cache, dtype=self.dtype)
+        return (encdec.head(cfg, params, h[:, -1]),
+                {"self": cache, "cross": cross_kv})
+
     def decode_step(self, params, cache, tokens, positions):
         """One decode step on a cache from :meth:`prefill` (either
         layout). tokens (B,1) int32; positions (B,1) — the position each
         new token is written to (attends to [0, pos])."""
         cfg = self.cfg
+        if cfg.is_encdec:
+            h, _ = encdec.decoder(cfg, params, tokens, positions.to(
+                torch.int32), cross_kv=cache["cross"],
+                self_cache=cache["self"], decode=True, dtype=self.dtype)
+            return encdec.head(cfg, params, h)[:, 0], cache
         x = transformer.embed(cfg, params, tokens, positions,
                               dtype=self.dtype)
         paged = "pools" in cache
@@ -133,6 +183,9 @@ class Model:
             full["blocks"])}
         if stage == 0:
             out["embed"] = full["embed"]
+            if self.cfg.is_encdec:
+                out["encoder"] = full["encoder"]
+                out["enc_final_norm"] = full["enc_final_norm"]
         if stage == n_stages - 1:
             out["final_norm"] = full["final_norm"]
             if "lm_head" in full:
@@ -150,6 +203,9 @@ class Model:
         out = {"blocks": transformer.slice_blocks(params["blocks"], p0, p1)}
         if stage == 0:
             out["embed"] = params["embed"]
+            if self.cfg.is_encdec:
+                out["encoder"] = params["encoder"]
+                out["enc_final_norm"] = params["enc_final_norm"]
         if stage == n_stages - 1:
             out["final_norm"] = params["final_norm"]
             if "lm_head" in params:

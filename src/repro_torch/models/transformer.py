@@ -7,7 +7,8 @@ reference scans the periods with ``lax.scan``, ``run_blocks`` loops over
 them in Python and hands each period a view of its slice. Pipeline stages
 slice the stacked axis — stage i owns periods [p0, p1) — via
 ``slice_blocks``, which returns views, so stage params share the full
-weights' memory. The encoder-decoder family is not ported.
+weights' memory. The encoder-decoder family (whisper) has its own stacks
+in ``models/encdec.py``.
 """
 
 from __future__ import annotations
@@ -36,10 +37,6 @@ MLPS = {"dense": mlp_mod.dense_mlp_defs, "moe": mlp_mod.moe_defs}
 
 
 def _check_supported(cfg: ModelConfig):
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder family (cross-attention) is "
-            f"not ported yet")
     for mix, mlp in _period_plan(cfg):
         if mix not in MIXERS or mlp not in MLPS:
             raise ValueError(f"{cfg.name}: unknown layer {mix}/{mlp}")
@@ -138,11 +135,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype, *,
 # ---------------------------------------------------------------------------
 
 
-def embed(cfg: ModelConfig, params: dict, tokens, positions, dtype=None):
-    """tokens (B,S) -> x (B,S,d)."""
+def embed(cfg: ModelConfig, params: dict, tokens, positions,
+          prefix_embeds=None, dtype=None):
+    """tokens (B,S) -> x (B, [P+]S, d). ``prefix_embeds`` (B,P,d), a VLM's
+    image patch embeddings, go before the token embeddings; learned
+    positions (``positions`` (B, P+S)) are added after the concatenation."""
     x = params["embed"]["tok"][tokens.long()]
     if dtype is not None:
         x = x.to(dtype)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     if cfg.pos_embed == "learned":
         x = x + params["embed"]["pos"][positions.long()].to(x.dtype)
     return x

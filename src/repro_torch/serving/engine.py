@@ -32,7 +32,9 @@ effects. KV layouts (``paged`` flag):
 
 The port serves the reference's decoder families: attention (GQA, dense
 or sparse-expert MLPs), rwkv and the hybrid of attention and mamba; the
-encoder-decoder family is refused at ``Model``. Recurrent mixer states
+encoder-decoder family is refused at the stage worker (as in the
+reference, which has no engine forward for it; ``Model.prefill`` and
+``decode_step`` serve it). Recurrent mixer states
 (rwkv's, mamba's) are slot-indexed on either layout: a model with one
 prefills one whole prompt at batch 1 (on the paged layout its attention
 K/V go into the pools through the slot's table row), and the
@@ -49,8 +51,13 @@ blocks spill to the host tier through a synchronous host read of their
 pages, made before the block id is reused, and a later prefix hit restores
 them. ``sanitize=True`` (or ``sanitize=None`` under ``REPRO_SANITIZE=1``)
 installs the KV-lifecycle sanitizer (``analysis/sanitizer.py``) on a
-paged engine. ``submit(prefix_embeds=...)`` (VLM prefixes) raises
-``ValueError`` before anything is admitted.
+paged engine. ``submit(prefix_embeds=...)`` takes a VLM's image patch
+embeddings (P, d) before the prompt on every non-fused engine: such a
+request is prefilled whole in one forward of the workers (never the
+ragged step, never chunked), never enters the prefix cache and is never
+preempted. The fused step refuses it with ``ValueError`` before anything
+is admitted (its token axis carries token ids only), as in the
+reference.
 
 Most callers should not hold an Engine directly: ``ServingEndpoint``
 (serving/endpoint.py) is the stable handle that swaps engines in place
@@ -292,12 +299,12 @@ class Engine:
             params = SamplingParams(max_new=max_new)
         if params is None:
             params = SamplingParams()
-        if prefix_embeds is not None:
+        if prefix_embeds is not None and self.fused:
             raise ValueError("prefix_embeds (vision prefixes) are not "
-                             "ported yet: the fused ragged step's token "
-                             "axis carries token ids only, and no engine "
-                             "of the port prefills an embedding prefix")
-        req = GenRequest(next(self._rid), list(prompt), params)
+                             "supported on the fused ragged step: the "
+                             "flattened token axis carries token ids only")
+        req = GenRequest(next(self._rid), list(prompt), params,
+                         prefix_embeds)
         req.metrics.submit_step = self.steps
         if req.prompt_total + params.max_new > self.max_seq:
             raise ValueError(
@@ -354,8 +361,17 @@ class Engine:
         emitted, so its final logits are discarded and decode simply
         restarts from the last emitted token."""
         req = pa.req
-        tok = req.chain()[pa.start:pa.start + pa.n]
-        h = self.runner.prefill(req.slot, tok, pa.start, pa.n)
+        if req.prefix_embeds is not None:
+            if pa.start != 0 or pa.n != req.prompt_total:
+                raise KVInvariantError(
+                    "prefix_embeds prefill must cover the whole prompt in "
+                    f"one chunk (got [{pa.start}, {pa.start + pa.n}) of "
+                    f"{req.prompt_total})")
+            tok = req.prompt
+        else:
+            tok = req.chain()[pa.start:pa.start + pa.n]
+        h = self.runner.prefill(req.slot, tok, pa.start, pa.n,
+                                prefix_embeds=req.prefix_embeds)
         req.prefilled = pa.start + pa.n
         self._step_prefill_tokens += pa.n
         self.block_mgr.commit(req.rid, req.prefilled)

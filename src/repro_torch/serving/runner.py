@@ -117,15 +117,19 @@ class ModelRunner:
         return self._bt_dev
 
     # ------------------------------------------------------------ compute
-    def prefill(self, slot: int, tokens: Sequence[int], start: int, n: int):
+    def prefill(self, slot: int, tokens: Sequence[int], start: int, n: int,
+                prefix_embeds=None):
         """One prefill forward over rows [start, start+n) of a request's
         chain: a one-segment ragged batch on the paged layout of an
-        attention-only model; otherwise the slot's whole prompt at batch 1
-        (``start`` is 0 there: no chunking), through the slot's table row
-        on the paged layout. Returns the last stage's logits at the final
-        row, (1, 1, V). Prefix embeddings (VLM
-        prefixes) are not ported: ``Engine.submit`` refuses them."""
-        if self.paged and self._attn_only:
+        attention-only model without a prefix; otherwise the slot's whole
+        prompt at batch 1 (``start`` is 0 there: no chunking), through the
+        slot's table row on the paged layout. ``prefix_embeds`` (P, d), a
+        VLM's image patch embeddings, are the prompt's first P rows (``n``
+        counts them; ``tokens`` are the rest): the ragged step's token axis
+        carries token ids only, so a prefix always takes the workers'
+        prefill. Returns the last stage's logits at the final row,
+        (1, 1, V)."""
+        if self.paged and self._attn_only and prefix_embeds is None:
             h = self.forward_batch([(slot, list(tokens), start)])
             return h[0][None, None]
         if start != 0:
@@ -133,12 +137,16 @@ class ModelRunner:
                                    "layout of an attention-only model")
         if self.tracer is not None:
             self.tracer.on_prefill(slot, start, n)
+        prefix = None
+        if prefix_embeds is not None:
+            prefix = torch.as_tensor(prefix_embeds).to(self.device)[None]
         h = self._to_dev(np.asarray([list(tokens)], np.int32))
         positions = self._to_dev(np.arange(start, start + n,
                                            dtype=np.int32)[None])
         bt = self._tables()[slot:slot + 1] if self.paged else None
         for w in self.workers:
-            h = w.prefill_slot(h, slot, positions, block_tables=bt)
+            h = w.prefill_slot(h, slot, positions, block_tables=bt,
+                               prefix_embeds=prefix)
         return h
 
     def decode(self, reqs: Sequence, skip_slots: Sequence[int] = ()):

@@ -11,6 +11,12 @@ Recurrent mixer states (rwkv's ``shift``/``wkv``, mamba's ``conv``/``h``)
 stay slot-indexed in both layouts. The forwards write new K/V and states
 into the caches in place, and so do ``copy_pages``, ``write_page`` and
 ``clear_slot`` (the reference rebuilt each cache array functionally).
+
+Decoder-only families. The encoder-decoder (whisper) is refused here, at
+any number of stages: the reference refuses it past one stage, and at
+one stage its worker runs the decoder-only blocks over whisper's
+``self``/``cross`` blocks and fails at the first prefill (``KeyError:
+'slot00'``). ``Model.prefill`` / ``decode_step`` serve it.
 """
 
 from __future__ import annotations
@@ -32,6 +38,13 @@ class StageWorker:
                  paged: bool = True, n_pages: Optional[int] = None,
                  page_size: Optional[int] = None, kv_dtype=None,
                  device=None):
+        if cfg.is_encdec and n_stages != 1:
+            raise ValueError("enc-dec serves single-worker")
+        if cfg.is_encdec:
+            raise ValueError(f"{cfg.name}: the stage worker runs "
+                             f"decoder-only blocks and has no "
+                             f"encoder-decoder forward; serve it through "
+                             f"Model.prefill and Model.decode_step")
         if kv_dtype is not None and not paged:
             raise ValueError("kv_dtype override requires the paged layout")
         self.device = resolve_device(device)
@@ -95,7 +108,8 @@ class StageWorker:
         return transformer.head(cfg, self.params, sel)
 
     @torch.no_grad()
-    def prefill_slot(self, x_in, slot: int, positions, block_tables=None):
+    def prefill_slot(self, x_in, slot: int, positions, block_tables=None,
+                     prefix_embeds=None):
         """Prefill of one request (batch 1 inputs: tokens (1, S) on the
         first stage, hidden (1, S, d) after) over its whole prompt, into
         cache slot ``slot``, written in place: contiguous K/V land at rows
@@ -104,9 +118,12 @@ class StageWorker:
         the slot; idle decode steps leave drift in a free slot's states).
         On the paged layout the attention slots write into the live shared
         pools through ``block_tables`` (1, nb), the slot's table row (a
-        hybrid model's prefill; an attention-only model rides
-        ``forward_ragged``). Last stage returns the final row's logits
-        (1, 1, V)."""
+        hybrid model's prefill, or a prefix's; an attention-only model
+        rides ``forward_ragged`` otherwise). ``prefix_embeds`` (1, P, d), a
+        VLM's image patch embeddings, are embedded before the tokens by the
+        first stage (``positions`` (1, P+S)); later stages take the hidden
+        states, prefix rows included. Last stage returns the final row's
+        logits (1, 1, V)."""
         if self.paged and block_tables is None and any(
                 transformer.is_attn_cache(sub)
                 for sub in self.cache.values()):
@@ -116,6 +133,7 @@ class StageWorker:
         cfg = self.cfg
         if self.first:
             x = transformer.embed(cfg, self.params, x_in, positions,
+                                  prefix_embeds=prefix_embeds,
                                   dtype=self.model.dtype)
         else:
             x = x_in

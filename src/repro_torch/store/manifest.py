@@ -26,12 +26,13 @@ from __future__ import annotations
 import json
 import os
 import tempfile
-import urllib.parse
 from dataclasses import dataclass, field
 from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.checkpoint.manager import encode_key, fsync_dir
 
 MANIFEST_NAME = "manifest.json"
 CHUNK_DIR = "chunks"
@@ -42,27 +43,6 @@ _NP_DTYPES = {"bfloat16": np.dtype(np.uint16)}
 _TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                  "float16": torch.float16, "int8": torch.int8,
                  "int32": torch.int32}
-
-
-def encode_key(key: str) -> str:
-    """Collision-free, filename-safe encoding of a tree-path key (the
-    reference's ``checkpoint/manager.py::encode_key``): percent-encoding is
-    injective, so distinct keys always get distinct file names."""
-    return urllib.parse.quote(key, safe="")
-
-
-def fsync_dir(path: str):
-    """fsync a directory so a just-committed rename survives a crash (the
-    reference's ``checkpoint/manager.py::fsync_dir``). Best-effort on
-    platforms that refuse O_RDONLY on dirs."""
-    try:
-        fd = os.open(path, os.O_RDONLY)
-    except OSError:                      # e.g. Windows
-        return
-    try:
-        os.fsync(fd)
-    finally:
-        os.close(fd)
 
 
 def np_dtype(name: str) -> np.dtype:

@@ -2,7 +2,10 @@
 versions (``repro_torch.kernels.ref``) on the same inputs: the paged
 kernels (ragged, paged decode), the slot-contiguous ones (flash, decode)
 and the WKV6 recurrence, and the engines (both layouts; granite, rwkv,
-qwen2-moe and jamba) against the CPU. Every test needs
+qwen2-moe, jamba and llava's image prefixes) and whisper's prefill and
+decode against the CPU; the attention kernels also at whisper-small's
+shapes (hd 64 at GQA group 1, non-causal over 1,500 keys, one query row
+over them) and llava-next-34b's (GQA group 7). Every test needs
 a CUDA card (marker ``cuda``) and skips without one. The file imports
 neither JAX nor the reference package, so it runs where only the port's
 dependencies are installed:
@@ -1133,3 +1136,148 @@ def test_cuda_fleet_scale_to_zero_matches_cpu(cuda):
     assert len(log) == 4 and [c["tier"] for c in log[2:]] == ["peer"] * 2
     assert [(c["model"], c["duration"], c["s"]) for c in log] == \
         [(c["model"], c["duration"], c["s"]) for c in cpu[1]]
+
+
+# ---------------------------------------------------------------------------
+# whisper-small's and llava-next-34b's shapes: head dim 64 at GQA group 1,
+# non-causal over 1,500 keys (the last 64-key stage holds 28), one query
+# row over them (cross-attention at decode), and GQA group 7 (Hq 56 over
+# Hkv 8), which is no power of two
+# ---------------------------------------------------------------------------
+
+# (batch, Sq, Sk, Hq, Hkv, hd, causal)
+ENCDEC_VLM_FLASH = {
+    "whisper-encoder": (2, 1500, 1500, 12, 12, 64, False),
+    "whisper-cross": (2, 300, 1500, 12, 12, 64, False),
+    "whisper-cross-decode": (4, 1, 1500, 12, 12, 64, False),
+    "whisper-decoder": (1, 412, 412, 12, 12, 64, True),
+    "llava-prefix-prefill": (1, 988, 988, 56, 8, 128, True),
+    "g7-hd64-offset-rows": (2, 45, 77, 14, 2, 64, True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(ENCDEC_VLM_FLASH))
+def test_cuda_flash_at_encdec_and_vlm_shapes(cuda, shape):
+    """bf16 flash on the tensor-core body at whisper's and llava's shapes,
+    each output row within its limit of the float32 plain version."""
+    b, sq, sk, hq, hkv, hd, causal = ENCDEC_VLM_FLASH[shape]
+    q, k, v = [a.to(cuda, torch.bfloat16)
+               for a in _qkv(b, sq, sk, hq, hkv, hd, seed=7)]
+    ops.reset_launch_counts()
+    got = flash_attention.flash_attention(q, k, v, causal=causal)
+    assert _bodies("flash_attention") == (1, 0)
+    want = ref.mha_reference(q.float(), k.float(), v.float(), causal=causal)
+    _assert_rows_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", [(12, 12, 64), (56, 8, 128)],
+                         ids=["whisper", "llava"])
+@pytest.mark.parametrize("lens", SPLIT_LENS, ids=["main", "edges"])
+def test_cuda_decode_kernels_at_encdec_and_vlm_shapes(cuda, geometry, lens):
+    """Both decode kernels (bf16, tensor-core bodies split over keys) at
+    whisper's self-attention (hd 64, G 1) and llava's (G 7) geometry: each
+    output row within its limit, a kv_len 0 row exactly 0."""
+    hq, hkv, hd = geometry
+    q, k, v, kl = _to(cuda, _contig_decode(lens, 1040, hq, hkv, hd, seed=8))
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    ops.reset_launch_counts()
+    got = decode_attention.decode_attention(q, k, v, kl)
+    assert _bodies("decode_attention") == (1, 0)
+    _assert_rows_close(got, ref.decode_attention_reference(
+        q.float(), k.float(), v.float(), kl))
+    assert bool((got[kl == 0] == 0).all())
+    q, k, v, tb, kl = _to(cuda, _decode(lens, hq, hkv, hd, 16, seed=9))
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    got = decode_attention.paged_decode_attention(q, k, v, tb, kl)
+    assert _bodies("paged_decode_attention") == (1, 0)
+    _assert_rows_close(got, ref.paged_decode_attention_reference(
+        q.float(), k.float(), v.float(), tb, kl))
+    assert bool((got[kl == 0] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pages", ["bf16", "int8"])
+@pytest.mark.parametrize("specs", [MIXED, LONG], ids=["mixed", "long"])
+def test_cuda_ragged_at_group_7(cuda, specs, pages):
+    """The ragged kernel at llava's GQA group 7 (Hq 56 over Hkv 8, hd 128)
+    on its tensor-core body, a bf16 q over bf16 or int8 pages: each output
+    row within its limit of the float32 plain version, pad rows exactly
+    0."""
+    q, k, v, tb, row, pos = _to(cuda, _ragged(specs, 56, 8, 128, 16,
+                                              seed=10))
+    q = q.bfloat16()
+    quant = None
+    name = "ragged_paged_attention"
+    if pages == "int8":
+        k, ks, kz = ref.quantize_kv(k)
+        v, vs, vz = ref.quantize_kv(v)
+        quant = {"k_scale": ks, "k_zero": kz, "v_scale": vs, "v_zero": vz}
+        name += "_q8"
+    else:
+        k, v = k.bfloat16(), v.bfloat16()
+    ops.reset_launch_counts()
+    got = ragged_attention.ragged_paged_attention(q, k, v, tb, row, pos,
+                                                  kv_quant=quant)
+    assert _bodies(name) == (1, 0)
+    want = ref.ragged_paged_attention_reference(
+        q.float(), k if quant else k.float(), v if quant else v.float(), tb,
+        row, pos, kv_quant=quant)
+    _assert_rows_close(got, want)
+    assert bool((got[pos < 0] == 0).all())
+
+
+@pytest.mark.cuda
+def test_cuda_encdec_and_vlm_prefix_match_cpu(cuda):
+    """Whisper's and llava's smoke variants in float32 on the card (the
+    kernels' CUDA-core bodies) against the CPU (plain versions): whisper's
+    prefill and two decode steps to 1e-5 of the CPU logits, flash and
+    contiguous decode launched; llava prefix requests beside text-only ones
+    through engines of both layouts give the CPU's greedy streams."""
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.models.model import Model
+    from repro_torch.serving.api import SamplingParams
+    from repro_torch.serving.engine import Engine
+    cfg = smoke_variant(get_config("whisper-small"))
+    params = Model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.RandomState(11)
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab, (2, 9)).astype(
+        np.int32))
+    frames = torch.from_numpy((rng.standard_normal(
+        (2, cfg.n_audio_frames, cfg.d_model)) * 0.02).astype(np.float32))
+    logits = []
+    ops.reset_launch_counts()
+    for dev in ("cpu", "cuda"):
+        m, p = Model(cfg), _tree_to(params, dev)
+        lg, cache = m.prefill(p, toks.to(dev), 16, frames=frames.to(dev),
+                              paged=False)
+        out = [lg]
+        for n in range(2):
+            tok = lg.argmax(-1)[:, None].to(torch.int32)
+            lg, cache = m.decode_step(p, cache, tok, torch.full(
+                (2, 1), 9 + n, dtype=torch.int32, device=dev))
+            out.append(lg)
+        logits.append([x.cpu() for x in out])
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] > 0 and counts["decode_attention"] > 0
+    for got, want in zip(logits[1], logits[0]):
+        torch.testing.assert_close(got, want, atol=1e-5 * float(
+            want.abs().max()), rtol=0)
+
+    cfg = smoke_variant(get_config("llava-next-34b"))
+    params = Model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    prefix = (torch.randn((cfg.n_image_tokens, cfg.d_model),
+                          generator=torch.Generator().manual_seed(1)) * 0.02)
+    prompts = [[1, 2, 3, 4, 5, 6, 7], [9, 8, 7, 6, 5], [3, 1, 4, 1, 5]]
+    for paged in (False, True):
+        streams = []
+        for dev in ("cpu", "cuda"):
+            eng = Engine(cfg, [_tree_to(params, dev)], max_batch=2,
+                         max_seq=32, block_size=8, paged=paged, device=dev)
+            reqs = [eng.submit(p, SamplingParams(max_new=5),
+                               prefix_embeds=prefix if i != 1 else None)
+                    for i, p in enumerate(prompts)]
+            eng.run()
+            streams.append([list(r.generated) for r in reqs])
+        assert streams[0] == streams[1], paged

@@ -9,8 +9,9 @@ and with slots reused after idle decode steps. Seeded sampled streams are
 held within the port (its sampler cannot reproduce ``jax.random``): the
 same across 1 vs 2 stages and across consolidation. The reference's
 KV-lifecycle sanitizer attaches to the port's engine as it is and audits
-it clean; ``n_attn_layers`` counts as the reference's does; and a refused
-``prefix_embeds`` request leaves the engine serving the others."""
+it clean; ``n_attn_layers`` counts as the reference's does; and a
+``prefix_embeds`` request refused by the fused step leaves the engine
+serving the others."""
 
 import jax
 import numpy as np
@@ -473,16 +474,22 @@ def test_n_attn_layers_equal_reference(request, model, stages):
             0 if stages == 1 else tcfg.n_layers - tcfg.n_layers // 2)
 
 
-@pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])
-def test_prefix_embeds_refused_without_admitting(granite, paged):
-    """A non-fused engine of either layout refuses ``prefix_embeds`` at
-    ``submit``, mid-stream, before anything is admitted: no request id is
-    taken, the queues are as they were, and the residents finish with the
-    streams of an engine that never saw the refused request."""
+@pytest.mark.parametrize("kv_dtype", [None, "int8"],
+                         ids=["fused", "fused_int8"])
+def test_prefix_embeds_refused_without_admitting(granite, kv_dtype):
+    """The fused ragged step (over pages of the model's dtype or int8)
+    refuses ``prefix_embeds`` at ``submit``, as the reference's does
+    (``test_fused_engine.py::test_engine_knob_validation``), mid-stream,
+    before anything is admitted: no request id is taken, the queues are as
+    they were, and the residents finish with the streams of an engine that
+    never saw the refused request. Non-fused engines serve prefixes
+    (``tests/test_torch_vlm.py``)."""
     _, _, tcfg, tparams = granite
 
     def serve(refuse):
-        eng = Engine(tcfg, [tparams], **dict(KW, paged=paged), device="cpu")
+        eng = Engine(tcfg, [tparams], **KW, fused=True, kv_dtype=kv_dtype,
+                     device="cpu")
+        assert eng.fused
         reqs = [eng.submit(p, SamplingParams(max_new=6))
                 for p in PROMPTS[:2]]
         eng.step()

@@ -528,8 +528,8 @@ DECODERS = ["granite-3-8b", "internlm2-20b", "starcoder2-7b", "qwen1.5-32b",
 def test_every_decoder_family_prefill_matches_reference(name, paged):
     """Each registered decoder's smoke variant (the reference's serving
     config) prefills on either layout to the reference's logits, to 1e-5
-    of their largest |value| (whisper, the encoder-decoder, is refused:
-    ``tests/test_torch_package.py``)."""
+    of their largest |value| (whisper, the encoder-decoder, has its own:
+    ``tests/test_torch_encdec.py``)."""
     jcfg = smoke(name)
     tcfg = dataclasses.replace(smoke_variant(get_config(name)),
                                capacity_factor=jcfg.capacity_factor)

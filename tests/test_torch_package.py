@@ -161,11 +161,17 @@ def test_not_ported_options_raise():
         Engine(cfg, [params], device="cpu", kv_tier=KVBlockStore())
     with pytest.raises(ValueError, match="paged"):
         Engine(cfg, [params], device="cpu", paged=False, sanitize=True)
-    # only enc-dec is refused: attention (dense or MoE), rwkv and mamba are
+    # an enc-dec model's defs build; the engine refuses it (the reference's
+    # has no forward for it); attention (dense or MoE), rwkv and mamba are
     # served
     import dataclasses
-    with pytest.raises(NotImplementedError, match="not ported"):
-        Model(dataclasses.replace(cfg, encoder_layers=2)).defs
+    encdec = Model(dataclasses.replace(cfg, encoder_layers=2,
+                                       n_audio_frames=8, pos_embed="learned",
+                                       max_position=64))
+    assert {"encoder", "enc_final_norm", "blocks"} <= set(encdec.defs)
+    eparams = encdec.init(torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(ValueError, match="encoder-decoder"):
+        Engine(encdec.cfg, [eparams], device="cpu")
     for kw in ({"mixer_pattern": ("rwkv", "mamba")},
                {"mlp_pattern": ("moe",), "n_experts": 4, "top_k": 2,
                 "expert_d_ff": 32}):
