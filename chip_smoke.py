@@ -15,6 +15,7 @@ NVIDIA H100.
     python3 chip_smoke.py --fleet     # build, then phase 8 alone
     python3 chip_smoke.py --families  # build, then phase 9 alone
     python3 chip_smoke.py --encdec-vlm  # build, then phase 10 alone
+    python3 chip_smoke.py --train     # build, then phase 11 alone
 
 Run from the root of a checkout. Phases:
 
@@ -160,6 +161,25 @@ Run from the root of a checkout. Phases:
    three 576-row image prefixes and one text-only request, and fused
    engines that refuse a prefix before admitting it; then each example
    twin of ``repro_torch.examples`` once on the card.
+11. training (``TRAIN``): granite-3-8b at full width, depth cut to 8 of
+   its 40 layers (all 40 need about 100 GB for bf16 params and gradients
+   and two float32 moments), bf16, on the production per-chip train shape
+   (one sequence of 4,096 from ``SyntheticTokens``). One step's loss and
+   gradients through the flash kernel (``ops._FlashFn``: the kernel
+   forward, the plain version's autodiff backward) against a forward on
+   the plain version: loss within 1e-2 relative, gradient norm within
+   3e-2, each leaf's cosine at least 0.99. Then six steps of
+   ``make_train_step(remat="full", grad_dtype="bfloat16")`` on the one
+   batch: finite losses, step 6's below 0.8 of step 1's, flash launched
+   16 times a step (forward and recompute) on the tensor cores with 8
+   plain backwards and no other kernel. Printed beside the card's name and
+   power limit: step ms (p50 of steps 2-6), tokens/s, ``train_mfu`` (3 x
+   ``roofline/analytic.py``'s forward FLOPs over the step time over 989
+   TFLOP/s), one profiled step's busy share and the shares of its device
+   time taken by the flash forward, the plain backwards and
+   ``apply_updates``, the peak allocated memory beside the resident bytes
+   reckoned from the defs; the same steps at a peak lr of 1e-3 (reported);
+   the ``train_small`` twin with a resume.
 
 Any failed check raises, and the script exits nonzero without a result
 line. On success the second-to-last line is the ``kernels`` JSON (every
@@ -181,9 +201,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-HBM_BYTES_PER_S = 3.35e12         # H100 SXM HBM3 (data sheet)
-BF16_FLOPS = 989e12               # H100 SXM dense bf16 tensor core
-F32_FLOPS = 67e12                 # H100 SXM float32, outside tensor cores
+# The card's peaks, HBM_BYTES_PER_S, BF16_FLOPS and F32_FLOPS (H100 SXM data
+# sheet), come from the port's ``roofline/analysis.py``: ``main`` binds them
+# here once ``src`` is on the path.
 
 Hq, HKV, HD, BS = 32, 8, 128, 16  # granite-3-8b attention at full width
 PROFILE_AT = 16                   # a decode step of the serve phase
@@ -3248,6 +3268,362 @@ def encdec_vlm_phase(torch):
     return total, kernels
 
 
+# ---------------------------------------------------------------------------
+# phase 11: training (TRAIN)
+# ---------------------------------------------------------------------------
+
+
+TRAIN_LAYERS = 8          # of granite-3-8b's 40: all 40 need ~100 GB at 12 B
+                          # a param (bf16 params and grads, f32 moments)
+TRAIN_STEPS = 6
+TRAIN_LR = 3e-5           # AdamW's peak lr (warmup 2 steps, 8 in all)
+TRAIN_LR_WITNESS = 1e-3   # the reference example's peak lr: at full width
+                          # with 2 warmup steps its loss climbs (reported)
+TRAIN_LOSS_REL = 1e-2     # one step's loss, kernel vs plain forward
+TRAIN_GNORM_REL = 3e-2    # its global gradient norm, kernel vs plain
+TRAIN_COSINE = 0.99       # each gradient leaf's cosine, kernel vs plain
+TRAIN_DROP = 0.8          # step 6's loss below this times step 1's
+TRAIN_TITLE = ("== training: granite-3-8b's train step at full width, "
+               f"{TRAIN_LAYERS} of 40 layers (flash forward, plain "
+               "backward, AdamW)")
+
+
+def train_kernel(torch, seq, reps, flush):
+    """The flash kernel at the train step's shape (B 1, ``seq`` rows,
+    causal, 32 q / 8 kv heads of 128, bf16): launched once on its
+    tensor-core body and held row by row against its float32 plain
+    version, then timed beside its bound, its plain version and one SDPA
+    call; and, for the backward the step takes from the plain version
+    (``ops.flash_backward_plain``), its time beside one SDPA forward and
+    backward (never called by the port). Printed as ``TRAIN_KERNEL``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ops, ref
+    g = torch.Generator(device="cuda").manual_seed(41)
+    b, s, hq, hkv, hd = 1, seq, Hq, HKV, HD
+    q, k, v = (torch.randn((b, s, h, hd), generator=g,
+                           device="cuda").bfloat16()
+               for h in (hq, hkv, hkv))
+    dout = torch.randn((b, s, hq, hd), generator=g,
+                       device="cuda").bfloat16()
+    ops.reset_launch_counts()
+    got = kfa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    if (ops.body_counts()["flash_attention/tensor_core"],
+            ops.body_counts()["flash_attention/cuda_core"]) != (1, 0):
+        raise AssertionError(f"TRAIN_KERNEL: flash not on the tensor cores "
+                             f"({ops.body_counts()})")
+    err = check_rows(f"flash at the train shape (1 x {seq}, causal)", got,
+                     ref.mha_reference(q.float(), k.float(), v.float()))
+    b_ms, b_by = bound_ms(2 * (2 * q.numel() + k.numel() + v.numel()),
+                          4 * hq * hd * flash_pairs(b, s, s, True),
+                          BF16_FLOPS)
+    qq, kk, vv = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k.repeat_interleave(hq // hkv, dim=2),
+                            v.repeat_interleave(hq // hkv, dim=2)))
+    dd = dout.transpose(1, 2).contiguous()
+
+    def library_fwd_bwd():
+        out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True)
+        torch.autograd.grad(out, (qq, kk, vv), dd)
+
+    rec = dict(kernel="flash_attention",
+               **kernel_ms(torch, lambda: kfa.flash_attention(q, k, v),
+                           reps, flush),
+               plain_ms=time_ms(torch, lambda: ref.mha_reference(q, k, v), 3,
+                                1, flush),
+               library_ms=time_ms(torch, sdpa_flash(torch, q, k, v), reps,
+                                  flush=flush),
+               bound_ms=b_ms, bound_by=b_by, max_abs_err=err[0],
+               err_over_tol=err[1],
+               backward_plain_ms=time_ms(
+                   torch, lambda: ops.flash_backward_plain(
+                       q, k, v, dout, True, 0), 3, 1, flush),
+               library_fwd_bwd_ms=time_ms(torch, library_fwd_bwd, 5, 1,
+                                          flush))
+    log("TRAIN_KERNEL " + json.dumps(rec))
+    return rec
+
+
+def _span_timer(torch, spans, name, fn):
+    """``fn`` with CUDA events recorded around each call, into
+    ``spans[name]`` (device time of the call's work on the stream)."""
+    def run(*a, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*a, **kw)
+        end.record()
+        spans.setdefault(name, []).append((start, end))
+        return out
+    return run
+
+
+def train_compare(torch, model, params, batch):
+    """One step's loss and gradients from the same params and batch
+    through the flash kernel (``_FlashFn``) and through a forward on the
+    plain version (swapped into ``ops`` for that one call), both on the
+    card with ``remat="full"``: the losses, the global gradient norms and
+    each leaf's cosine."""
+    from unittest import mock
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.training.train_step import loss_and_grads
+
+    def plain(q, k, v, *, causal=True, q_offset=0, kv_len=None):
+        return ref.mha_reference(q, k, v, causal=causal, q_offset=q_offset,
+                                 kv_len=kv_len)
+
+    loss_k, _, g_k = loss_and_grads(model, params, batch, remat="full")
+    with mock.patch.object(ops, "flash_attention", plain):
+        loss_p, _, g_p = loss_and_grads(model, params, batch, remat="full")
+    cos, sq_k, sq_p = [], 0.0, 0.0
+    for a, b in zip(tree_leaves(g_k), tree_leaves(g_p)):
+        a, b = a.float().flatten(), b.float().flatten()
+        cos.append(float(torch.nn.functional.cosine_similarity(a, b, dim=0,
+                                                               eps=1e-30)))
+        sq_k += float(a.square().sum())
+        sq_p += float(b.square().sum())
+    rec = {"loss_kernel": float(loss_k), "loss_plain": float(loss_p),
+           "grad_norm_kernel": math.sqrt(sq_k),
+           "grad_norm_plain": math.sqrt(sq_p), "min_leaf_cosine": min(cos)}
+    rec["loss_rel"] = abs(rec["loss_kernel"] - rec["loss_plain"]) / abs(
+        rec["loss_plain"])
+    rec["grad_norm_rel"] = abs(rec["grad_norm_kernel"]
+                               - rec["grad_norm_plain"]) / rec[
+        "grad_norm_plain"]
+    log(f"  kernel vs plain forward, one step: loss {rec['loss_kernel']:.6f}"
+        f" / {rec['loss_plain']:.6f} (rel {rec['loss_rel']:.2e}, limit "
+        f"{TRAIN_LOSS_REL}), grad norm {rec['grad_norm_kernel']:.6f} / "
+        f"{rec['grad_norm_plain']:.6f} (rel {rec['grad_norm_rel']:.2e}, "
+        f"limit {TRAIN_GNORM_REL}), least leaf cosine "
+        f"{rec['min_leaf_cosine']:.6f} (limit {TRAIN_COSINE})")
+    if not (rec["loss_rel"] <= TRAIN_LOSS_REL
+            and rec["grad_norm_rel"] <= TRAIN_GNORM_REL
+            and rec["min_leaf_cosine"] >= TRAIN_COSINE):
+        raise AssertionError(f"TRAIN: kernel and plain forwards disagree: "
+                             f"{rec}")
+    return rec
+
+
+def train_profile(torch, step, params, state, batch):
+    """One more train step under ``torch.profiler``, with CUDA events around
+    each plain flash backward and around ``apply_updates`` (wrappers
+    installed for this step only). Returns (params, state, the record:
+    the step's device ms, busy share of its wall time, and the device ms
+    and share of the flash forward kernel, the plain backwards and the
+    update)."""
+    from unittest import mock
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+    from repro_torch.training import optimizer as opt
+    spans = {}
+    with mock.patch.object(ops, "flash_backward_plain", _span_timer(
+            torch, spans, "backward_plain", ops.flash_backward_plain)), \
+            mock.patch.object(opt, "apply_updates", _span_timer(
+                torch, spans, "apply_updates", opt.apply_updates)):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            params, state, _ = step(params, state, batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    kern = {e.key: _dev_ms(e) / 1e3 for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
+    device = sum(kern.values())
+    flash = sum(v for k, v in kern.items()
+                if "flash_mma_kernel" in k or "flash_kernel" in k)
+    rec = {"device_ms": device, "profiled_wall_ms": wall,
+           "busy": device / wall, "flash_forward_ms": flash,
+           "flash_forward_share": flash / device,
+           "top_kernels_ms": {k[:60]: v for k, v in sorted(
+               kern.items(), key=lambda kv: -kv[1])[:6]}}
+    for name, pairs in spans.items():
+        ms = sum(a.elapsed_time(b) for a, b in pairs)
+        rec[f"{name}_ms"], rec[f"{name}_share"] = ms, ms / device
+        rec[f"{name}_calls"] = len(pairs)
+    return params, state, rec
+
+
+def train_lr_witness(torch, model, batch):
+    """``TRAIN_STEPS`` steps from the same params (drawn again from the
+    same seed) at a peak lr of ``TRAIN_LR_WITNESS``, the rest as the main
+    path: the losses, reported, not held."""
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_step import make_train_step
+    step = make_train_step(model, opt.AdamWConfig(
+        lr=TRAIN_LR_WITNESS, warmup_steps=2, total_steps=8), remat="full",
+        grad_dtype="bfloat16")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    state, losses = opt.init_state(params), []
+    for _ in range(TRAIN_STEPS):
+        params, state, metrics = step(params, state, batch)
+        losses.append(float(metrics["loss"]))
+    log(f"  peak lr {TRAIN_LR_WITNESS} (reported): losses {losses}; step "
+        f"{TRAIN_STEPS} over step 1 {losses[-1] / losses[0]:.3f}")
+    return {"lr": TRAIN_LR_WITNESS, "losses": losses}
+
+
+def train_small_twin(torch):
+    """The ``train_small`` twin on the card: 3 steps into a checkpoint
+    directory in the checkout (deleted after), then a second call resumes
+    from step 3 and runs to 5."""
+    import contextlib
+    import io
+    import shutil
+    from repro_torch.examples import train_small
+    ck = ROOT / "_train_small_smoke"
+    buf = io.StringIO()
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            first = train_small.main(steps=3, fresh=True, device="cuda",
+                                     ckpt_dir=str(ck))
+            second = train_small.main(steps=5, device="cuda",
+                                      ckpt_dir=str(ck))
+        secs = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    losses = [float(first[i]["loss"]) for i in sorted(first)] + \
+        [float(second[i]["loss"]) for i in sorted(second)]
+    if "restored checkpoint at step 3" not in buf.getvalue() or \
+            sorted(second) != [3, 4] or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"train_small twin on the card: {losses}\n"
+                             f"{buf.getvalue()}")
+    log(f"  twin train_small on the card: losses {losses}, resumed at step 3"
+        f" ({secs:.1f} s)")
+    return {"losses": losses, "s": secs}
+
+
+def train_phase(torch, smi):
+    """The ``TRAIN`` phase: granite-3-8b at full width (d 4096, 32 q / 8 kv
+    heads of 128, d_ff 12800, vocab 49155, bf16), ``TRAIN_LAYERS`` of its
+    40 layers, random weights from a seeded generator, on the production
+    per-chip train shape (``SHAPES["train_4k"]``: 256 sequences of 4,096
+    over 256 chips, so one sequence here; ``SyntheticTokens`` seed 0).
+    First one step's gradients through the kernel against a plain forward
+    (``train_compare``); then ``TRAIN_STEPS`` steps of
+    ``make_train_step(remat="full", grad_dtype="bfloat16")`` at a peak lr
+    of ``TRAIN_LR`` on the one batch, counted from 0 (flash 16 launches a
+    step, all on the tensor cores, and 8 plain backwards); then one
+    profiled step (``train_profile``), the same steps at a peak lr of
+    ``TRAIN_LR_WITNESS`` from the same params (``train_lr_witness``) and
+    the ``train_small`` twin; first of all, the flash kernel alone at the
+    step's shape (``train_kernel``). Returns the main path's launches and
+    the kernel's row."""
+    import dataclasses
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.model import Model
+    from repro_torch.roofline import analytic
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.data import SyntheticTokens
+    from repro_torch.training.train_step import make_train_step
+    import gc
+    t_phase = time.perf_counter()
+    full = get_config("granite-3-8b")
+    cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
+    prod = SHAPES["train_4k"]
+    shape = dataclasses.replace(prod, global_batch=prod.global_batch // 256)
+    model = Model(cfg)
+    n_params = sum(math.prod(d.shape) for d in tree_leaves(model.defs))
+    n_full = sum(math.prod(d.shape) for d in tree_leaves(Model(full).defs))
+    resident = 12 * n_params
+    log(f"  depth cut to {TRAIN_LAYERS} of {full.n_layers} layers: all "
+        f"{full.n_layers} hold {n_full / 1e9:.3f} B params, "
+        f"{12 * n_full / 1e9:.1f} GB at 12 B a param (bf16 params and "
+        f"grads, two f32 moments), over the card's 80 GB before any "
+        f"activation; {TRAIN_LAYERS} hold {n_params / 1e9:.3f} B, "
+        f"{resident / 1e9:.2f} GB resident")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    kernel = train_kernel(torch, shape.seq_len, 20, flush)
+    del flush
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    batch = {k: torch.from_numpy(v).cuda() for k, v in next(iter(
+        SyntheticTokens(cfg, shape.global_batch, shape.seq_len,
+                        seed=0))).items()}
+    compare = train_compare(torch, model, params, batch)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    acfg = opt.AdamWConfig(lr=TRAIN_LR, warmup_steps=2, total_steps=8)
+    step = make_train_step(model, acfg, remat="full",
+                           grad_dtype="bfloat16")
+    state = opt.init_state(params)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    losses, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, state, metrics = step(params, state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+    launches, bodies = ops.launch_counts(), ops.body_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  losses {losses}; step ms {[round(t, 2) for t in step_ms]}")
+    want_flash = 2 * TRAIN_LAYERS * TRAIN_STEPS
+    if not all(map(math.isfinite, losses)) or \
+            not losses[-1] < TRAIN_DROP * losses[0]:
+        raise AssertionError(f"TRAIN: losses {losses}: want finite, step "
+                             f"{TRAIN_STEPS} below {TRAIN_DROP} x step 1")
+    if (launches["flash_attention"] != want_flash
+            or bodies["flash_attention/tensor_core"] != want_flash
+            or bodies["flash_attention/backward_plain"]
+            != TRAIN_LAYERS * TRAIN_STEPS
+            or any(n for k, n in launches.items()
+                   if k != "flash_attention")):
+        raise AssertionError(f"TRAIN: launches {launches}, bodies {bodies}:"
+                             f" want flash {want_flash} on the tensor "
+                             f"cores, {TRAIN_LAYERS * TRAIN_STEPS} plain "
+                             f"backwards, nothing else")
+    params, state, prof = train_profile(torch, step, params, state, batch)
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    witness = train_lr_witness(torch, model, batch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    twin = train_small_twin(torch)
+
+    p50 = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    fwd = analytic.step_flops(cfg, shape)
+    rec = {"device": smi, "model": "granite-3-8b", "layers": TRAIN_LAYERS,
+           "lr": TRAIN_LR,
+           "of_layers": full.n_layers, "batch": shape.global_batch,
+           "seq": shape.seq_len, "params": n_params, "remat": "full",
+           "grad_dtype": "bfloat16", "losses": losses, "step_ms": step_ms,
+           "step_ms_p50": p50,
+           "tokens_per_s": shape.global_batch * shape.seq_len / p50 * 1e3,
+           "forward_flops": fwd, "train_flops": 3 * fwd,
+           "train_mfu": 3 * fwd / (p50 / 1e3) / BF16_FLOPS,
+           "max_memory_allocated": peak, "resident_bytes": resident,
+           "compare": compare, "launches": launches, "bodies": bodies,
+           "kernel": kernel, "profile": prof, "lr_witness": witness,
+           "train_small_twin": twin,
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"  {smi}: peak lr {TRAIN_LR}, step p50 {p50:.2f} ms (steps "
+        f"2-{TRAIN_STEPS}), "
+        f"{rec['tokens_per_s']:.1f} tokens/s, train_mfu "
+        f"{rec['train_mfu']:.4f} (3 x {fwd:.4e} forward FLOPs over the step "
+        f"over {BF16_FLOPS:.3e} FLOP/s), busy {prof['busy']:.3f} of one "
+        f"profiled step; flash forward {prof['flash_forward_share']:.3f}, "
+        f"plain backward {prof['backward_plain_share']:.3f}, apply_updates "
+        f"{prof['apply_updates_share']:.3f} of its device time; "
+        f"max allocated {peak / 2**30:.2f} GiB vs {resident / 2**30:.2f} "
+        f"GiB resident from the defs")
+    log(f"  TRAIN phase: {rec['phase_s']:.1f} s")
+    log("TRAIN " + json.dumps(rec))
+    return launches, kernel
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -3300,6 +3676,9 @@ def main():
     ap.add_argument("--encdec-vlm", action="store_true",
                     help="build, then only the encoder-decoder and image "
                          "prefix phase (no result line)")
+    ap.add_argument("--train", action="store_true",
+                    help="build, then only the training phase (no result "
+                         "line)")
     args = ap.parse_args()
 
     import torch
@@ -3310,6 +3689,9 @@ def main():
         raise SystemExit(f"FAIL: {SRC / 'repro_torch'} not found: run "
                          f"from the root of a checkout of the repository")
     sys.path.insert(0, str(SRC))
+    global BF16_FLOPS, F32_FLOPS, HBM_BYTES_PER_S
+    from repro_torch.roofline.analysis import (  # noqa: F401
+        BF16_FLOPS, F32_FLOPS, HBM_BYTES_PER_S)
     # full-precision float32 products for the f32 checks (both defaults,
     # stated and set)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3317,8 +3699,8 @@ def main():
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
-    log(smi.splitlines()[0])
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
 
@@ -3367,6 +3749,10 @@ def main():
         log(ENCDEC_VLM_TITLE)
         encdec_vlm_phase(torch)
         return
+    if args.train:
+        log(TRAIN_TITLE)
+        train_phase(torch, smi)
+        return
 
     log("== kernels vs plain versions")
     rows = kernel_phase(torch, args.quick)
@@ -3375,7 +3761,8 @@ def main():
     fleet_launches = {k: None for k in rows}
     families_launches = {k: None for k in rows}
     encdec_vlm_launches = {k: None for k in rows}
-    g1, encdec_vlm = {}, {}
+    train_launches = {k: None for k in rows}
+    g1, encdec_vlm, train_kernel_row = {}, {}, None
     if not args.quick:
         import gc
         from repro_torch.configs import get_config
@@ -3418,6 +3805,11 @@ def main():
         log(ENCDEC_VLM_TITLE)
         ev, encdec_vlm = encdec_vlm_phase(torch)
         encdec_vlm_launches = {k: ev.get(k, 0) for k in rows}
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(TRAIN_TITLE)
+        tr, train_kernel_row = train_phase(torch, smi)
+        train_launches = {k: tr.get(k, 0) for k in rows}
 
     kernels = []
     for name, source, replaces in KERNELS:
@@ -3427,6 +3819,7 @@ def main():
                         "launches_fleet": fleet_launches[name],
                         "launches_families": families_launches[name],
                         "launches_encdec_vlm": encdec_vlm_launches[name],
+                        "launches_train": train_launches[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
@@ -3440,7 +3833,9 @@ def main():
                             "ms", "plain_ms", "bound_ms", "bound_by",
                             "library_ms", "max_abs_err")}
                             for label, r in encdec_vlm.items()
-                            if r["kernel"] == name}})
+                            if r["kernel"] == name},
+                        "train": (train_kernel_row if name == "flash_attention"
+                                  else None)})
     # every pl.pallas_call of the repo has its kernel above
     print(json.dumps({"kernels": kernels, "not_ported": []}))
     print(json.dumps({"ok": True, "device": {

@@ -6,6 +6,7 @@ failed check raises).
     python -m repro_torch.examples.store_coldstart_smoke [--device cpu]
     python -m repro_torch.examples.consolidation_demo [--device cpu]
     python -m repro_torch.examples.streaming_demo [--device cpu]
+    python -m repro_torch.examples.train_small [--device cpu] [--steps N]
 
 Each runs on the card unless ``--device cpu`` is given, at the
 reference's smoke sizes (``configs.smoke_variant``: float32, head dim 16),

@@ -10,6 +10,17 @@ that its attention and its recurrences went through the kernels; the
 attention kernels, each with a tensor-core and a CUDA-core body, also count
 each body's launches (``body_counts``).
 
+Gradients. The reference's Pallas kernels have no backward (no
+``custom_vjp``), so the reference trains through XLA's autodiff of its
+plain ``jnp`` attention. On the card, ``flash_attention`` with an input
+that requires grad runs ``_FlashFn``: the forward launches the kernel, the
+backward is the autodiff of the plain version (``ref.mha_reference``),
+recomputed from the saved q, k, v; ``body_counts()`` counts those
+backwards under ``"flash_attention/backward_plain"``. The other four
+kernels serve only: on the card they raise on an input that requires grad,
+so no gradient is ever lost in a launch. On the CPU, autograd flows
+through the plain versions.
+
 Sanitize mode (``REPRO_SANITIZE=1``, read at import, or
 ``set_sanitize_mode``) runs ``analysis/kernelcheck.py``'s contract checks
 before every paged decode and ragged launch, on the CPU and on the card
@@ -22,6 +33,8 @@ from __future__ import annotations
 import os
 from typing import Dict
 
+import torch
+
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ragged_attention as _ra
@@ -29,8 +42,10 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import wkv6 as _wkv
 
 _COUNTS = (_ra.LAUNCHES, _da.LAUNCHES, _fa.LAUNCHES, _wkv.LAUNCHES)
+# the plain backwards of flash calls that required grad on the card
+BACKWARDS = {"flash_attention/backward_plain": 0}
 _BODY_COUNTS = (_ra.BODY_LAUNCHES, _da.BODY_LAUNCHES,
-                _fa.BODY_LAUNCHES)
+                _fa.BODY_LAUNCHES, BACKWARDS)
 
 _SANITIZE = os.environ.get("REPRO_SANITIZE", "0").lower() \
     not in ("", "0", "off", "false")
@@ -62,7 +77,8 @@ def launch_counts() -> Dict[str, int]:
 
 def body_counts() -> Dict[str, int]:
     """Launches since the last ``reset_launch_counts`` by kernel and body:
-    ``"<kernel>/tensor_core"`` and ``"<kernel>/cuda_core"``."""
+    ``"<kernel>/tensor_core"`` and ``"<kernel>/cuda_core"``; and
+    ``"flash_attention/backward_plain"``, ``_FlashFn``'s backwards."""
     return {k: n for counts in _BODY_COUNTS for k, n in counts.items()}
 
 
@@ -72,15 +88,62 @@ def reset_launch_counts():
             counts[k] = 0
 
 
+def _wants_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in ts)
+
+
+def _refuse_grad(name: str, *ts):
+    """A serving kernel on the card takes no input that requires grad: it
+    has no backward, nor has the reference's Pallas kernel."""
+    if _wants_grad(*ts):
+        raise ValueError(
+            f"{name}: an input requires grad, and the kernel has no "
+            f"backward (nor has the reference's Pallas kernel, which has no "
+            f"custom_vjp): it serves only; train on the CPU's plain version")
+
+
+def flash_backward_plain(q, k, v, dout, causal: bool, q_offset: int):
+    """The gradients (dq, dk, dv) of ``flash_attention`` at (q, k, v) for
+    the output cotangent ``dout``: the autodiff of the plain version,
+    recomputed from q, k, v."""
+    BACKWARDS["flash_attention/backward_plain"] += 1
+    with torch.enable_grad():
+        qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = _ref.mha_reference(*qkv, causal=causal, q_offset=q_offset)
+    return torch.autograd.grad(out, qkv, dout)
+
+
+class _FlashFn(torch.autograd.Function):
+    """The flash kernel forward, the plain version's autodiff backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_offset):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.q_offset = causal, q_offset
+        return _fa.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        grads = flash_backward_plain(q, k, v, dout, ctx.causal, ctx.q_offset)
+        return tuple(g if need else None for g, need
+                     in zip(grads, ctx.needs_input_grad)) + (None, None)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
                     kv_len=None):
     """Prefill attention over slot-contiguous K/V. q (B,Sq,Hq,hd); k, v
     (B,Sk,Hkv,hd). ``kv_len`` (B,) is the plain version's only: the
-    kernel, like the Pallas one, takes none, and on the card it raises."""
+    kernel, like the Pallas one, takes none, and on the card it raises.
+    On the card, a call with an input that requires grad goes through
+    ``_FlashFn``; any other takes the kernel's launch alone."""
     if _on_card(q):
         if kv_len is not None:
             raise ValueError("flash_attention: the kernel takes no kv_len "
                              "(as the Pallas kernel takes none)")
+        if _wants_grad(q, k, v):
+            return _FlashFn.apply(q, k, v, causal, q_offset)
         return _fa.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
     return _ref.mha_reference(q, k, v, causal=causal, q_offset=q_offset,
                               kv_len=kv_len)
@@ -90,6 +153,7 @@ def decode_attention(q, k_cache, v_cache, kv_len):
     """Single-token decode against slot-contiguous caches. q (B,1,Hq,hd);
     caches (B,S,Hkv,hd); kv_len (B,) int32."""
     if _on_card(q):
+        _refuse_grad("decode_attention", q, k_cache, v_cache)
         return _da.decode_attention(q, k_cache, v_cache, kv_len)
     return _ref.decode_attention_reference(q, k_cache, v_cache, kv_len)
 
@@ -102,6 +166,7 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_len):
         kernelcheck.check_paged_decode(q, k_pages, v_pages, block_tables,
                                        kv_len)
     if _on_card(q):
+        _refuse_grad("paged_decode_attention", q, k_pages, v_pages)
         return _da.paged_decode_attention(q, k_pages, v_pages, block_tables,
                                           kv_len)
     return _ref.paged_decode_attention_reference(
@@ -123,6 +188,8 @@ def ragged_paged_attention(q, k_pages, v_pages, tables, row, pos, *,
                                        pos, kv_quant=kv_quant,
                                        tile_q=_ra.TILE_Q)
     if _on_card(q):
+        _refuse_grad("ragged_paged_attention", q, k_pages, v_pages,
+                     *(kv_quant or {}).values())
         return _ra.ragged_paged_attention(q, k_pages, v_pages, tables, row,
                                           pos, kv_quant=kv_quant)
     return _ref.ragged_paged_attention_reference(
@@ -138,6 +205,7 @@ def wkv6(r, k, v, w, u, initial_state=None, *, chunk: int = 64,
     place). ``chunk`` is the plain version's time chunk; the kernel needs
     none."""
     if _on_card(r):
+        _refuse_grad("wkv6", r, k, v, w, u, initial_state)
         return _wkv.wkv6(r, k, v, w, u, initial_state, out_state=out_state)
     y, s = _ref.wkv6_chunked(r, k, v, w, u, initial_state, chunk=chunk)
     if out_state is not None:

@@ -1,4 +1,5 @@
-"""Shared model building blocks: ParamDef trees, RMSNorm, RoPE, init.
+"""Shared model building blocks: ParamDef trees, RMSNorm, RoPE, init, the
+training loss.
 
 Params are plain nested dicts of tensors keyed like the reference's
 pytrees, so ``convert.params_from_numpy`` maps one onto the other leaf for
@@ -13,6 +14,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import resolve
 
 _DTYPES = {
     "float32": torch.float32,
@@ -56,11 +58,30 @@ def tree_map(fn: Callable, tree):
     return fn(tree)
 
 
+def map_defs(fn: Callable, defs):
+    """Map ``fn`` over the ParamDefs of a def tree (the reference's name
+    for ``tree_map`` over defs)."""
+    return tree_map(fn, defs)
+
+
 def tree_leaves(tree):
     """Leaves in sorted-key order, the order of ``jax.tree.leaves``."""
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
     return [tree]
+
+
+def tree_unflatten(tree, leaves):
+    """A tree shaped like ``tree`` holding ``leaves`` in ``tree_leaves``
+    order (dict keys come out sorted)."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        return next(it)
+
+    return build(tree)
 
 
 def init_params(defs, generator: torch.Generator, dtype, device=None):
@@ -87,6 +108,11 @@ def init_params(defs, generator: torch.Generator, dtype, device=None):
         return out
 
     return tree_map(one, defs)
+
+
+def param_specs(defs):
+    """PartitionSpec tree (resolved under the active mesh rules)."""
+    return map_defs(lambda d: resolve(d.axes), defs)
 
 
 def param_bytes(defs, bytes_per_param=2) -> int:
@@ -137,3 +163,17 @@ def apply_rope(x, positions, theta: float):
 
 def silu(x):
     return x * torch.sigmoid(x)
+
+
+def cross_entropy(logits, labels, z_loss: float = 0.0):
+    """logits (..., V) float32-cast CE with optional z-loss; labels < 0
+    masked."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        torch.clamp_min(labels, 0).long()[..., None])[..., 0]
+    nll = lse - gold
+    if z_loss:
+        nll = nll + z_loss * lse ** 2
+    mask = (labels >= 0).float()
+    return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)

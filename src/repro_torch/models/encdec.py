@@ -14,10 +14,11 @@ reference scans the layers with ``lax.scan``, the port loops over them in
 Python and hands each layer a view of its slice, so the self-attention
 slabs are written in place.
 
-Serve path only: the decoder takes the precomputed ``cross_kv``. The
-reference's training branches — ``decoder(memory=...)``, which computes
-the cross K/V inline, and ``remat`` — come with training (ROADMAP queue 1
-item 7), as does the reference's ``cross_kv_structs`` (shape structs for
+The decoder takes the encoder memory's cross K/V precomputed (the serve
+path) or ``memory=`` (training: the cross K/V computed inline, as the
+reference's training branch), and ``remat`` recomputes each decoder layer
+in the backward, as the reference's ``jax.checkpoint`` of its scan step.
+Not ported yet: the reference's ``cross_kv_structs`` (shape structs for
 the sharded dry run).
 """
 
@@ -30,6 +31,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models.transformer import remat_wrap
 from repro_torch.models.common import (ParamDef, as_dtype, rmsnorm,
                                        stack_defs, tree_leaves, tree_map)
 
@@ -61,9 +63,11 @@ def encdec_defs(cfg: ModelConfig) -> dict:
 
 
 def _layers(stacked: dict):
-    """Views of each layer's slice of a tree stacked on axis 0."""
+    """Views of each layer's slice of a tree stacked on axis 0 (``unbind``:
+    a stacked leaf's gradient is the layers' gradients stacked once)."""
+    layers = tree_map(lambda a: a.unbind(0), stacked)
     for i in range(tree_leaves(stacked)[0].shape[0]):
-        yield tree_map(lambda a: a[i], stacked)
+        yield tree_map(lambda a: a[i], layers)
 
 
 def encode(cfg: ModelConfig, params: dict, frames):
@@ -93,30 +97,45 @@ def precompute_cross_kv(cfg: ModelConfig, params: dict, memory):
 
 
 def decoder(cfg: ModelConfig, params: dict, tokens, positions, *,
-            cross_kv: dict, self_cache: Optional[dict] = None,
-            decode: bool = False, dtype=None):
-    """Decoder stack over precomputed ``cross_kv`` (the serve path).
-    tokens, positions (B,S). ``self_cache`` {"k", "v"} (L,B,Smax,Hkv,hd):
-    a prefill (``decode=False``) writes the tokens' K/V at rows [0, S),
-    a decode step (S == 1) at ``positions``; both in place. Returns
-    (hidden (B,S,d), self_cache)."""
+            memory=None, cross_kv: Optional[dict] = None,
+            self_cache: Optional[dict] = None, decode: bool = False,
+            remat: str = "none", dtype=None):
+    """Decoder stack over the encoder ``memory`` (B,F,d) (training: the
+    cross K/V computed inline) or its precomputed ``cross_kv`` (the serve
+    path). tokens, positions (B,S). ``self_cache`` {"k", "v"}
+    (L,B,Smax,Hkv,hd): a prefill (``decode=False``) writes the tokens' K/V
+    at rows [0, S), a decode step (S == 1) at ``positions``; both in
+    place. ``remat`` (no cache) wraps each layer as ``run_blocks`` wraps a
+    period. Returns (hidden (B,S,d), self_cache)."""
+    if cross_kv is None:
+        if memory is None:
+            raise ValueError("decoder: give the encoder memory or its "
+                             "precomputed cross_kv")
+        cross_kv = precompute_cross_kv(cfg, params, memory)
+    if remat != "none" and self_cache is not None:
+        raise ValueError("remat recomputes a training forward: it takes no "
+                         "cache")
     x = params["embed"]["tok"][tokens.long()]
     if dtype is not None:
         x = x.to(dtype)
     x = x + params["embed"]["pos"][positions.long()].to(x.dtype)
-    for i, p in enumerate(_layers(params["blocks"])):
+
+    def layer(p, mem_kv, kvc, x):
         xin = rmsnorm(x, p["self"]["norm"], cfg.norm_eps)
-        kvc = ((self_cache["k"][i], self_cache["v"][i])
-               if self_cache is not None else None)
         y, _ = attn.self_attention(cfg, p["self"], xin, positions=positions,
                                    causal=True, kv_cache=kvc, decode=decode)
         x = x + y
         xin = rmsnorm(x, p["cross_norm"], cfg.norm_eps)
-        x = x + attn.cross_attention(
-            cfg, p["cross"], xin, mem_kv=(cross_kv["k"][i],
-                                          cross_kv["v"][i]))
+        x = x + attn.cross_attention(cfg, p["cross"], xin, mem_kv=mem_kv)
         xin = rmsnorm(x, p["mlp"]["norm"], cfg.norm_eps)
-        x = x + mlp_mod.dense_mlp(p["mlp"], xin)
+        return x + mlp_mod.dense_mlp(p["mlp"], xin)
+
+    layer = remat_wrap(layer, remat)
+    ks, vs = cross_kv["k"].unbind(0), cross_kv["v"].unbind(0)
+    for i, p in enumerate(_layers(params["blocks"])):
+        kvc = ((self_cache["k"][i], self_cache["v"][i])
+               if self_cache is not None else None)
+        x = layer(p, (ks[i], vs[i]), kvc, x)
     return x, self_cache
 
 

@@ -112,10 +112,20 @@ def _scan(a, h, dt, bm, cm, u):
     y (B,S,d_in) float32."""
     da = torch.exp(dt[..., None] * a)                      # (B,S,d_in,n)
     dbu = (dt * u)[..., None] * bm[:, :, None, :]          # (B,S,d_in,n)
-    hs = torch.empty_like(da)
     prev = h
-    for t in range(dt.shape[1]):
-        prev = torch.addcmul(dbu[:, t], da[:, t], prev, out=hs[:, t])
+    if torch.is_grad_enabled() and (da.requires_grad or dbu.requires_grad):
+        # training: ``out=`` takes no autograd, so the same steps are
+        # stacked after the loop; the first step reads a copy of ``h``,
+        # which autograd saves and the write below must not reach
+        prev, states = h.clone(), []
+        for t in range(dt.shape[1]):
+            prev = torch.addcmul(dbu[:, t], da[:, t], prev)
+            states.append(prev)
+        hs = torch.stack(states, 1)
+    else:
+        hs = torch.empty_like(da)
+        for t in range(dt.shape[1]):
+            prev = torch.addcmul(dbu[:, t], da[:, t], prev, out=hs[:, t])
     h.copy_(prev)
     return torch.einsum("bsdn,bsn->bsd", hs, cm)
 

@@ -1,6 +1,7 @@
-"""Model facade: ParamDef trees, init, one-shot prefill / decode entry
-points over the paged or the slot-contiguous KV layout, and the
-stage-slicing API used by pipeline-parallel cold starts. The
+"""Model facade: ParamDef trees (init, sharding specs), the training loss,
+one-shot prefill / decode entry points over the paged or the
+slot-contiguous KV layout, and the stage-slicing API used by
+pipeline-parallel cold starts. The
 encoder-decoder family (``models/encdec.py``) prefills and decodes on the
 slot-contiguous layout only, as in the reference."""
 
@@ -15,8 +16,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ragged_attention import TILE_Q
 from repro_torch.models import encdec, transformer
-from repro_torch.models.common import (ParamDef, as_dtype, init_params,
-                                       param_bytes, tree_map)
+from repro_torch.models.common import (ParamDef, as_dtype, cross_entropy,
+                                       init_params, param_bytes, param_specs,
+                                       tree_map)
+
+AUX_LOSS_WEIGHT = 0.01
+Z_LOSS = 1e-4
 
 
 @dataclass(frozen=True)
@@ -43,8 +48,88 @@ class Model:
             generator = torch.Generator(device=dev).manual_seed(0)
         return init_params(self.defs, generator, self.dtype, dev)
 
+    def specs(self):
+        """PartitionSpec tree (resolved under the active mesh rules)."""
+        return param_specs(self.defs)
+
     def bytes(self) -> int:
         return param_bytes(self.defs, self.dtype.itemsize)
+
+    # ------------------------------------------------------------- inputs
+    def _input_shapes(self, batch: int, seq: int) -> dict:
+        cfg = self.cfg
+        out = {"tokens": ((batch, seq), torch.int32)}
+        if cfg.family == "vlm":
+            out["patch_embeds"] = ((batch, cfg.n_image_tokens, cfg.d_model),
+                                   self.dtype)
+        if cfg.is_encdec:
+            out["frames"] = ((batch, cfg.n_audio_frames, cfg.d_model),
+                             self.dtype)
+        return out
+
+    def input_structs(self, batch: int, seq: int) -> dict:
+        """A train batch's shapes and dtypes, as tensors on the ``meta``
+        device."""
+        return {k: torch.empty(shape, dtype=dt, device="meta")
+                for k, (shape, dt) in self._input_shapes(batch, seq).items()}
+
+    def dummy_inputs(self, generator: torch.Generator, batch: int,
+                     seq: int) -> dict:
+        """A random train batch on ``generator``'s device: uniform tokens,
+        embeddings of std 0.02 (the reference draws the same shapes from
+        ``jax.random``, which a torch generator cannot reproduce)."""
+        dev = generator.device
+        out = {}
+        for k, (shape, dt) in self._input_shapes(batch, seq).items():
+            if k == "tokens":
+                out[k] = torch.randint(0, self.cfg.vocab, shape, dtype=dt,
+                                       generator=generator, device=dev)
+            else:
+                out[k] = torch.randn(shape, generator=generator, device=dev,
+                                     dtype=torch.float32).to(dt) * 0.02
+        return out
+
+    # --------------------------------------------------------------- train
+    def loss(self, params, batch: dict, *, remat: str = "none"):
+        """Next-token cross entropy (z-loss ``Z_LOSS``) of ``batch``
+        {"tokens" (B,S), and "patch_embeds" (vlm) or "frames" (enc-dec)},
+        tensors or numpy arrays, plus ``AUX_LOSS_WEIGHT`` times the MoE
+        load-balancing loss; the last token has no label. ``remat``: see
+        ``transformer.run_blocks``. Returns (loss, {"ce", "aux"}), float32
+        scalars on the params' device."""
+        cfg = self.cfg
+        dev = params["final_norm"].device
+        tokens = torch.as_tensor(batch["tokens"], device=dev)
+        b, s = tokens.shape
+        labels = torch.cat([tokens[:, 1:].long(), torch.full(
+            (b, 1), -1, dtype=torch.long, device=dev)], dim=1)
+        if cfg.is_encdec:
+            memory = encdec.encode(cfg, params,
+                                   torch.as_tensor(batch["frames"],
+                                                   device=dev))
+            pos = torch.arange(s, dtype=torch.int32,
+                               device=dev)[None].expand(b, s)
+            h, _ = encdec.decoder(cfg, params, tokens, pos, memory=memory,
+                                  remat=remat, dtype=self.dtype)
+            ce = cross_entropy(encdec.head(cfg, params, h), labels, Z_LOSS)
+            return ce, {"ce": ce, "aux": torch.zeros(
+                (), dtype=torch.float32, device=dev)}
+
+        prefix = batch.get("patch_embeds")
+        if prefix is not None:
+            prefix = torch.as_tensor(prefix, device=dev)
+        plen = prefix.shape[1] if prefix is not None else 0
+        total = plen + s
+        pos = torch.arange(total, dtype=torch.int32,
+                           device=dev)[None].expand(b, total)
+        x = transformer.embed(cfg, params, tokens, pos, prefix_embeds=prefix,
+                              dtype=self.dtype)
+        x, _, aux = transformer.run_blocks(cfg, params["blocks"], x, pos,
+                                           remat=remat)
+        logits = transformer.head(cfg, params, x[:, plen:])
+        ce = cross_entropy(logits, labels, Z_LOSS)
+        aux = torch.as_tensor(aux, dtype=torch.float32, device=dev)
+        return ce + AUX_LOSS_WEIGHT * aux, {"ce": ce, "aux": aux}
 
     # ------------------------------------------------------------- serving
     def prefill(self, params, tokens, max_seq: int, *, page_size: int = 16,
@@ -111,7 +196,7 @@ class Model:
             pos = pos.reshape(1, -1)
             x = transformer.embed(cfg, params, toks.reshape(1, -1),
                                   torch.clamp_min(pos, 0), dtype=self.dtype)
-            x, _ = transformer.run_blocks(cfg, params["blocks"], x, pos,
+            x, _, _ = transformer.run_blocks(cfg, params["blocks"], x, pos,
                                           cache=cache,
                                           ragged=(tables, row, pos[0] >= 0))
             last = x[0].reshape(b, sa, -1)[:, s - 1]
@@ -120,7 +205,7 @@ class Model:
                                device=dev)[None].expand(b, total)
             x = transformer.embed(cfg, params, tokens.to(dev), pos,
                                   prefix_embeds=prefix, dtype=self.dtype)
-            x, _ = transformer.run_blocks(cfg, params["blocks"], x, pos,
+            x, _, _ = transformer.run_blocks(cfg, params["blocks"], x, pos,
                                           cache=cache, block_tables=tables)
             last = x[:, -1]
         logits = transformer.head(cfg, params, last)
@@ -163,7 +248,7 @@ class Model:
         x = transformer.embed(cfg, params, tokens, positions,
                               dtype=self.dtype)
         paged = "pools" in cache
-        x, _ = transformer.run_blocks(
+        x, _, _ = transformer.run_blocks(
             cfg, params["blocks"], x, positions.to(torch.int32),
             cache=cache["pools"] if paged else cache, decode=True,
             block_tables=cache["block_tables"] if paged else None)

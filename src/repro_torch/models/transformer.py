@@ -4,7 +4,10 @@ MoE cadence ``cfg.mlp_pattern`` (dense or moe MLPs), as in the reference.
 
 Params are stacked over periods on axis 0, as in the reference; where the
 reference scans the periods with ``lax.scan``, ``run_blocks`` loops over
-them in Python and hands each period a view of its slice. Pipeline stages
+them in Python and hands each period a view of its slice (``unbind``, so
+a stacked leaf's gradient is the periods' gradients stacked once).
+``remat`` wraps each period in ``torch.utils.checkpoint``, as the
+reference wraps its scan step in ``jax.checkpoint``. Pipeline stages
 slice the stacked axis — stage i owns periods [p0, p1) — via
 ``slice_blocks``, which returns views, so stage params share the full
 weights' memory. The encoder-decoder family (whisper) has its own stacks
@@ -13,9 +16,11 @@ in ``models/encdec.py``.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -163,6 +168,9 @@ def head(cfg: ModelConfig, params: dict, x):
 def _period_step(cfg: ModelConfig, pslice: dict, cslice, x, positions,
                  decode: bool, block_tables=None, hist_len: int = 0,
                  ragged=None):
+    """One period's slots. Returns (x, the period's MoE load-balancing
+    loss: 0.0 without a MoE slot)."""
+    aux = 0.0
     for i, (mix, mlp) in enumerate(_period_plan(cfg)):
         slot = f"slot{i:02d}"
         sp = pslice[slot]
@@ -194,14 +202,43 @@ def _period_step(cfg: ModelConfig, pslice: dict, cslice, x, positions,
         if mlp == "dense":
             x = x + mlp_mod.dense_mlp(sp["mlp"], xin)
         else:
-            # the load-balancing loss is a training term: serving drops it
-            x = x + mlp_mod.moe_mlp(cfg, sp["mlp"], xin)[0]
-    return x
+            y, a = mlp_mod.moe_mlp(cfg, sp["mlp"], xin)
+            x = x + y
+            aux = aux + a
+    return x, aux
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy: keep the products without batch dims
+    (``aten.mm``/``aten.addmm``: the projections), recompute the rest
+    (``bmm`` included), as ``dots_with_no_batch_dims_saveable``."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+REMAT = ("none", "full", "dots")
+
+
+def remat_wrap(fn, remat: str):
+    """``fn`` under ``torch.utils.checkpoint`` for ``remat`` ``"full"`` (all
+    recomputed in the backward) or ``"dots"`` (``_dots_saveable``);
+    ``"none"`` returns ``fn``."""
+    if remat not in REMAT:
+        raise ValueError(f"remat={remat!r}: want one of {REMAT}")
+    if remat == "none":
+        return fn
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _dots_saveable)
+    return functools.partial(ckpt.checkpoint, fn, use_reentrant=False, **kw)
 
 
 def run_blocks(cfg: ModelConfig, blocks: dict, x, positions, *,
                cache: Optional[dict] = None, decode: bool = False,
-               block_tables=None, hist_len: int = 0, ragged=None):
+               block_tables=None, hist_len: int = 0, ragged=None,
+               remat: str = "none"):
     """Run the stacked periods in order. ``blocks``/``cache`` leading dim =
     periods (possibly a stage's slice); each period gets views of its
     slice, so the caches are written in place. A slot-contiguous cache
@@ -212,15 +249,25 @@ def run_blocks(cfg: ModelConfig, blocks: dict, x, positions, *,
     ``ragged`` = (tables, row, valid) routes attention through the fused
     ragged-batch kernel — x is (1, T, d), positions (1, T) with -1 pads.
     An rwkv or mamba slot's recurrence starts from its cached state and
-    leaves the new one there. Returns (x, cache)."""
+    leaves the new one there. ``remat`` (training, no cache): ``"full"``
+    recomputes each period in the backward, ``"dots"`` keeps its
+    projections' outputs and recomputes the rest. Returns (x, cache, the
+    MoE load-balancing loss summed over periods: 0.0 without MoE)."""
+    if remat != "none" and cache is not None:
+        raise ValueError("remat recomputes a training forward: it takes no "
+                         "cache")
+    step = remat_wrap(functools.partial(
+        _period_step, cfg, decode=decode, block_tables=block_tables,
+        hist_len=hist_len, ragged=ragged), remat)
+    periods = tree_map(lambda a: a.unbind(0), blocks)
+    aux = 0.0
     for i in range(tree_leaves(blocks)[0].shape[0]):
-        pslice = tree_map(lambda a: a[i], blocks)
+        pslice = tree_map(lambda a: a[i], periods)
         cslice = tree_map(lambda a: a[i], cache) if cache is not None \
             else None
-        x = _period_step(cfg, pslice, cslice, x, positions, decode,
-                         block_tables=block_tables, hist_len=hist_len,
-                         ragged=ragged)
-    return x, cache
+        x, a = step(pslice, cslice, x, positions)
+        aux = aux + a
+    return x, cache, aux
 
 
 # ---------------------------------------------------------------------------

@@ -98,7 +98,7 @@ class StageWorker:
                                   dtype=self.model.dtype)
         else:
             x = x_in
-        x, _ = transformer.run_blocks(cfg, self.params["blocks"], x,
+        x, _, _ = transformer.run_blocks(cfg, self.params["blocks"], x,
                                       positions, cache=self.cache,
                                       ragged=(tables, row, valid))
         if not self.last:
@@ -147,7 +147,7 @@ class StageWorker:
             if not transformer.is_attn_cache(sub):
                 for arr in strip[name].values():
                     arr.zero_()
-        x, _ = transformer.run_blocks(cfg, self.params["blocks"], x,
+        x, _, _ = transformer.run_blocks(cfg, self.params["blocks"], x,
                                       positions, cache=strip,
                                       block_tables=block_tables)
         return transformer.head(cfg, self.params, x[:, -1:]) \
@@ -165,7 +165,7 @@ class StageWorker:
                                   dtype=self.model.dtype)
         else:
             x = x_in
-        x, _ = transformer.run_blocks(cfg, self.params["blocks"], x,
+        x, _, _ = transformer.run_blocks(cfg, self.params["blocks"], x,
                                       positions, cache=self.cache,
                                       decode=True,
                                       block_tables=block_tables)

@@ -31,6 +31,15 @@ kernel splits a head's value columns over blocks, stages its rows in tiles
 of ``STEPS_PER_TILE`` steps and sums a launch of fewer steps over other
 lanes (``row_lanes``), so its cases cross tile boundaries on both sides and
 hold a row's bits equal alone and inside a batch.
+
+Gradients (the training slice): a flash call whose inputs require grad
+goes through ``ops._FlashFn`` (the kernel forward, the plain version's
+autodiff backward), so its gradients are the plain autograd's on the same
+inputs: float32 at 1e-5 and bf16 within one bf16 rounding of the largest
+|value| of each gradient (2^-8, both sides round the same float32 sums);
+the other four kernels refuse an input that requires grad. A smoke train
+step on the card equals the CPU's to 1e-4 of each gradient's largest
+|value| (float32, TF32 off), under each remat mode.
 """
 
 import numpy as np
@@ -341,7 +350,8 @@ def test_cuda_body_counts_follow_the_dtypes(cuda):
         "decode_attention/tensor_core": 2,
         "decode_attention/cuda_core": 1,
         "flash_attention/tensor_core": 3,
-        "flash_attention/cuda_core": 1}
+        "flash_attention/cuda_core": 1,
+        "flash_attention/backward_plain": 0}
     ops.reset_launch_counts()
     assert not any(ops.body_counts().values())
 
@@ -1281,3 +1291,111 @@ def test_cuda_encdec_and_vlm_prefix_match_cpu(cuda):
             eng.run()
             streams.append([list(r.generated) for r in reqs])
         assert streams[0] == streams[1], paged
+
+
+# ---------------------------------------------------------------------------
+# gradients through the kernels (the training slice)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_cuda_flash_fn_gradients_equal_plain_autograd(cuda, causal, group,
+                                                      hd, dtype):
+    dt = DTYPES[dtype]
+    q, k, v = [a.to(cuda, dt).requires_grad_()
+               for a in _qkv(2, 45, 45, 2 * group, 2, hd, seed=3)]
+    dout = torch.from_numpy(np.random.RandomState(4).randn(
+        *q.shape).astype(np.float32)).to(cuda, dt)
+    ops.reset_launch_counts()
+    out = ops.flash_attention(q, k, v, causal=causal)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    counts, bodies = ops.launch_counts(), ops.body_counts()
+    assert counts["flash_attention"] == 1
+    assert bodies["flash_attention/backward_plain"] == 1
+    body = "cuda_core" if dt == torch.float32 else "tensor_core"
+    assert bodies[f"flash_attention/{body}"] == 1
+    want_out = ref.mha_reference(q, k, v, causal=causal)
+    want = torch.autograd.grad(want_out, (q, k, v), dout)
+    _check(out.detach(), ref.mha_reference(q.detach().float(),
+                                           k.detach().float(),
+                                           v.detach().float(),
+                                           causal=causal), dt)
+    for a, b in zip(got, want):
+        assert a.dtype == dt and a.shape == b.shape
+        if dt == torch.float32:
+            torch.testing.assert_close(a, b, **F32_TOL)
+        else:
+            lim = 2.0 ** -8 * float(b.float().abs().max())
+            assert float((a.float() - b.float()).abs().max()) <= lim
+
+
+@pytest.mark.cuda
+def test_cuda_serving_kernels_refuse_inputs_that_require_grad(cuda):
+    """No kernel call that requires grad comes back without a gradient:
+    the four serving kernels raise (under ``no_grad`` they serve)."""
+    q, k, v, tb, row, pos = _to(cuda, _ragged(MIXED, 4, 2, 16, 4))
+    dq, dk, dv, dtb, dkl = _to(cuda, _decode([5, 9], 4, 2, 16, 4))
+    cq, ck, cv, ckl = _to(cuda, _contig_decode([5, 9], 16, 4, 2, 16))
+    x = torch.randn(1, 5, 2, 16, device=cuda)
+    u = torch.randn(2, 16, device=cuda)
+    calls = [
+        (lambda a: ops.ragged_paged_attention(a, k, v, tb, row, pos), q),
+        (lambda a: ops.paged_decode_attention(a, dk, dv, dtb, dkl), dq),
+        (lambda a: ops.decode_attention(a, ck, cv, ckl), cq),
+        (lambda a: ops.wkv6(a, x, x, x, u)[0], x),
+    ]
+    ops.reset_launch_counts()
+    for fn, a in calls:
+        with pytest.raises(ValueError, match="requires grad"):
+            fn(a.clone().requires_grad_())
+    assert not any(ops.launch_counts().values())
+    with torch.no_grad():
+        for fn, a in calls:
+            fn(a.clone().requires_grad_())
+    assert all(n == 1 for k_, n in ops.launch_counts().items()
+               if k_ != "flash_attention" and not k_.endswith("_q8"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", ["none", "full", "dots"])
+def test_cuda_train_step_matches_cpu(cuda, remat):
+    """A smoke granite's loss and gradients on the card (flash through
+    ``_FlashFn``) equal the CPU's plain path, and a whole train step moves
+    the params alike; ``"full"`` launches flash twice a layer."""
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.model import Model
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.data import SyntheticTokens
+    from repro_torch.training.train_step import (loss_and_grads,
+                                                 make_train_step)
+    cfg = smoke_variant(get_config("granite-3-8b"))
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    batch = next(iter(SyntheticTokens(cfg, 2, 40, seed=0)))
+    lc, _, gc = loss_and_grads(model, params, batch, remat=remat)
+    ops.reset_launch_counts()
+    lg, _, gg = loss_and_grads(model, _tree_to(params, cuda), batch,
+                               remat=remat)
+    n = cfg.n_layers
+    assert ops.launch_counts()["flash_attention"] == \
+        (2 * n if remat != "none" else n)
+    assert ops.body_counts()["flash_attention/backward_plain"] == n
+    assert abs(float(lg) - float(lc)) <= 1e-5 * abs(float(lc))
+    for a, b in zip(tree_leaves(gg), tree_leaves(gc)):
+        lim = 1e-4 * float(b.abs().max()) + 1e-12
+        assert float((a.cpu() - b).abs().max()) <= lim
+    acfg = opt.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=8)
+    step = make_train_step(model, acfg, remat=remat, grad_dtype=None)
+    pc, _, _ = step(params, opt.init_state(params), batch)
+    pg_, sg, mg = step(_tree_to(params, cuda), opt.init_state(
+        _tree_to(params, cuda)), batch)
+    assert sg["step"].device.type == "cuda"
+    lr1 = float(opt._schedule(acfg, torch.tensor(1)))
+    for a, b in zip(tree_leaves(pg_), tree_leaves(pc)):
+        assert float((a.cpu() - b).abs().max()) <= 2 * lr1 + 1e-6

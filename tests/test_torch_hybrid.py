@@ -314,7 +314,7 @@ def test_hybrid_prefill_then_decode_equals_the_full_forward(jamba, paged):
         0, tcfg.vocab, (2, 11)).astype(np.int32))
     pos = torch.arange(11, dtype=torch.int32)[None].expand(2, 11)
     x = transformer.embed(tcfg, tparams, toks, pos, dtype=m.dtype)
-    x, _ = transformer.run_blocks(tcfg, tparams["blocks"], x, pos)
+    x, _, _ = transformer.run_blocks(tcfg, tparams["blocks"], x, pos)
     full = transformer.head(tcfg, tparams, x)[:, -1]
     _, cache = m.prefill(tparams, toks[:, :10], 16, page_size=8,
                          paged=paged)

@@ -194,3 +194,169 @@ def test_every_reference_config_is_registered_with_equal_fields():
             dataclasses.asdict(jget(name)), name
         assert dataclasses.asdict(smoke_variant(get_config(name))) == \
             dataclasses.asdict(jsmoke(jget(name))), name
+
+
+# ---------------------------------------------------------------------------
+# the training slice: roofline, sharding, training
+# ---------------------------------------------------------------------------
+
+TRAINING_MODULES = ["roofline/analytic.py", "roofline/analysis.py",
+                    "distributed/sharding.py", "training/data.py",
+                    "training/optimizer.py", "training/train_step.py",
+                    "examples/train_small.py"]
+
+
+def test_training_modules_leave_jax_and_reference_unloaded():
+    code = ("import sys\n"
+            "import repro_torch.training.train_step, "
+            "repro_torch.roofline.analysis, "
+            "repro_torch.distributed.sharding, "
+            "repro_torch.examples.train_small\n"
+            "assert 'jax' not in sys.modules and 'repro' not in sys.modules"
+            "\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env={"PYTHONPATH": str(SRC),
+                                         "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("rel", TRAINING_MODULES)
+def test_lint_covers_the_training_modules(tmp_path, rel):
+    """Each module lints clean; a KV byte formula added to it is flagged
+    outside the blessed ``roofline/analytic.py``."""
+    from repro_torch.analysis import lint
+    path = PKG / rel
+    assert lint.lint_file(str(path), rel) == []
+    bad = tmp_path / "m.py"
+    bad.write_text(path.read_text()
+                   + "\nX = 2 * cfg.n_kv_heads * cfg.head_dim\n")
+    want = [] if rel == "roofline/analytic.py" else ["kv-bytes-formula"]
+    assert [f.rule for f in lint.lint_file(str(bad), rel)] == want
+
+
+def _plain_inputs(seed=0):
+    """Small inputs of the four serving kernels' plain versions, float32,
+    the float ones requiring grad."""
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g).requires_grad_()  # noqa
+    hq, hkv, hd, bs = 4, 2, 16, 4
+    tables = torch.tensor([[0, 1, 2], [3, 4, 5]], dtype=torch.int32)
+    return {
+        "ragged": (r(8, hq, hd), r(7, bs, hkv, hd), r(7, bs, hkv, hd),
+                   tables, torch.tensor([0] * 4 + [1] * 4, dtype=torch.int32),
+                   torch.tensor([0, 1, 2, 3, 5, 6, -1, -1],
+                                dtype=torch.int32)),
+        "paged": (r(2, 1, hq, hd), r(7, bs, hkv, hd), r(7, bs, hkv, hd),
+                  tables, torch.tensor([5, 9], dtype=torch.int32)),
+        "decode": (r(2, 1, hq, hd), r(2, 12, hkv, hd), r(2, 12, hkv, hd),
+                   torch.tensor([5, 9], dtype=torch.int32)),
+        "wkv6": (r(1, 5, 2, hd), r(1, 5, 2, hd), r(1, 5, 2, hd),
+                 r(1, 5, 2, hd), r(2, hd)),
+    }
+
+
+def _serving_calls():
+    from repro_torch.kernels import ops
+    return {"ragged": ops.ragged_paged_attention,
+            "paged": ops.paged_decode_attention,
+            "decode": ops.decode_attention,
+            "wkv6": lambda *a: ops.wkv6(*a)[0]}
+
+
+@pytest.mark.parametrize("kernel", ["ragged", "paged", "decode", "wkv6"])
+def test_serving_kernels_keep_autograd_on_the_cpu(kernel):
+    """On CPU tensors each serving wrapper is its plain version: autograd
+    flows through it to every float input, and no launch is counted."""
+    from repro_torch.kernels import ops
+    args = _plain_inputs()[kernel]
+    ops.reset_launch_counts()
+    out = _serving_calls()[kernel](*args)
+    assert out.requires_grad
+    float_in = [a for a in args if a.is_floating_point()]
+    grads = torch.autograd.grad(out.square().sum(), float_in)
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    assert any(bool(g.abs().sum() > 0) for g in grads)
+    assert not any(ops.launch_counts().values())
+
+
+@pytest.mark.parametrize("kernel", ["ragged", "paged", "decode", "wkv6"])
+def test_serving_kernels_refuse_grad_on_the_card(kernel, monkeypatch):
+    """Dispatch as on the card (``_on_card`` forced): an input that
+    requires grad is refused before any kernel is reached; under
+    ``no_grad`` the call goes on to the kernel's wrapper (which, given a CPU
+    tensor, refuses it)."""
+    from repro_torch.kernels import ops
+    monkeypatch.setattr(ops, "_on_card", lambda t: True)
+    args = _plain_inputs()[kernel]
+    with pytest.raises(ValueError, match="requires grad.*no backward"):
+        _serving_calls()[kernel](*args)
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA tensor"):
+        _serving_calls()[kernel](*args)
+
+
+def _flash_on_card(monkeypatch):
+    """Dispatch as on the card with the plain version standing in for the
+    kernel (its launches counted), so ``_FlashFn`` runs on the CPU."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+
+    def kernel(q, k, v, *, causal=True, q_offset=0):
+        fa.LAUNCHES["flash_attention"] += 1
+        return ref.mha_reference(q, k, v, causal=causal, q_offset=q_offset)
+
+    monkeypatch.setattr(ops, "_on_card", lambda t: True)
+    monkeypatch.setattr(fa, "flash_attention", kernel)
+    ops.reset_launch_counts()
+    return ops
+
+
+@pytest.mark.parametrize("causal,q_offset", [(True, 0), (False, 0),
+                                             (True, 3)])
+def test_flash_fn_gradients_equal_the_plain_autograd(monkeypatch, causal,
+                                                     q_offset):
+    from repro_torch.kernels import ref
+    ops = _flash_on_card(monkeypatch)
+    g = torch.Generator().manual_seed(1)
+    q, k, v = (torch.randn(2, 5, 4, 16, generator=g).requires_grad_()
+               for _ in range(3))
+    k2, v2 = (torch.randn(2, 8, 4, 16, generator=g).requires_grad_()
+              for _ in range(2))
+    out = ops.flash_attention(q, k2, v2, causal=causal, q_offset=q_offset)
+    dout = torch.randn(out.shape, generator=g)
+    got = torch.autograd.grad(out, (q, k2, v2), dout)
+    want = torch.autograd.grad(ref.mha_reference(
+        q, k2, v2, causal=causal, q_offset=q_offset), (q, k2, v2), dout)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-6)
+    assert ops.body_counts()["flash_attention/backward_plain"] == 1
+    assert ops.launch_counts()["flash_attention"] == 1
+    # no grad wanted: the launch alone, no autograd node
+    with torch.no_grad():
+        assert ops.flash_attention(q, k, v).grad_fn is None
+    assert ops.launch_counts()["flash_attention"] == 2
+    assert ops.body_counts()["flash_attention/backward_plain"] == 1
+
+
+@pytest.mark.parametrize("remat", ["none", "full", "dots"])
+def test_flash_fn_composes_with_remat(monkeypatch, remat):
+    """A smoke granite's gradients through ``_FlashFn`` (the plain version
+    standing in for the kernel) equal the plain path's for each remat
+    mode; ``"full"`` launches the forward twice a layer, the backward once
+    a layer."""
+    import dataclasses
+    from repro_torch.training.data import SyntheticTokens
+    from repro_torch.training.train_step import loss_and_grads
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(_cfg(), n_layers=3)
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    batch = next(iter(SyntheticTokens(cfg, 2, 9, seed=0)))
+    _, _, want = loss_and_grads(model, params, batch)
+    ops = _flash_on_card(monkeypatch)
+    _, _, got = loss_and_grads(model, params, batch, remat=remat)
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-5)
+    launches = ops.launch_counts()["flash_attention"]
+    assert launches == (6 if remat != "none" else 3)
+    assert ops.body_counts()["flash_attention/backward_plain"] == 3
