@@ -16,6 +16,7 @@ NVIDIA H100.
     python3 chip_smoke.py --families  # build, then phase 9 alone
     python3 chip_smoke.py --encdec-vlm  # build, then phase 10 alone
     python3 chip_smoke.py --train     # build, then phase 11 alone
+    python3 chip_smoke.py --dist      # build, then phase 12 alone
 
 Run from the root of a checkout. Phases:
 
@@ -180,6 +181,28 @@ Run from the root of a checkout. Phases:
    ``apply_updates``, the peak allocated memory beside the resident bytes
    reckoned from the defs; the same steps at a peak lr of 1e-3 (reported);
    the ``train_small`` twin with a resume.
+12. the distributed prefills (``DIST``): the flash kernel alone at every
+   shape the phase launches it at (B 2, 32,768 rows, causal, hd 128: the
+   forward's 32 q over 8 kv heads, the manual-TP prefill's 32 q heads over
+   the 32 kv heads each selects, a tp = 16 rank's 2; B 1, 32,768: a
+   pipeline micro-batch's 32 over 8; B 1, 8,192: a tp = 2 rank's 16 at
+   group 1), each held row by row against its float32 plain version on
+   two or three (batch row, q head) pairs and timed beside its bound, that
+   plain version on one pair and one SDPA call (``DIST_KERNELS``); then
+   granite-3-8b at full width and depth (bf16, 15.60 GiB) in the manual-TP
+   prefill at tp 2 on B 1 x 8,192, as two processes on this card over
+   gloo (NCCL refuses two ranks on one GPU), each rank's vocab columns
+   and K/V slice held against its own one-rank forward and its flash
+   launches counted from 0; then on tokens of B
+   2 x 32,768 (``prefill_32k``'s share of one of 16 data ranks) on a
+   one-rank NCCL process group: the reference forward
+   (``Model.prefill(paged=False)``), the manual-TP prefill at tp 1 and the
+   pipelined prefill at 1 stage with 2 micro-batches, each run's launches
+   counted from 0 (flash 40, 40 and 80, every one on the tensor cores,
+   no other kernel); each run's last-token logits within 2^-5 of the
+   forward's largest |logit| and each manual-TP K/V layer within 2^-7 of
+   the forward's layer's largest |value| plus 1e-4; argmax agreement
+   reported; each run's device ms, wall ms and peak allocated bytes.
 
 Any failed check raises, and the script exits nonzero without a result
 line. On success the second-to-last line is the ``kernels`` JSON (every
@@ -3624,6 +3647,497 @@ def train_phase(torch, smi):
     return launches, kernel
 
 
+DIST_SEQ = 32_768         # SHAPES["prefill_32k"]'s sequence
+DIST_BATCH = 2            # its global batch 32 over a data axis of 16
+DIST_MICRO = 2            # the pipelined prefill's micro-batches
+DIST_REL = 2.0 ** -5      # last-token logits vs the reference forward's
+                          # largest |logit| (the ENCDEC_VLM phase's limit)
+DIST_KV_REL = 2.0 ** -7   # each manual-TP K/V layer vs the forward's, of
+DIST_KV_ATOL = 1e-4       # that layer's largest |value|, plus this
+DIST2_BATCH = 1           # the two-rank manual-TP run's tokens: gloo moves
+DIST2_SEQ = 8_192         # every collective through the host
+DIST_TITLE = ("== distributed prefills: granite-3-8b's manual-TP and "
+              f"pipelined prefills at full width and depth, B {DIST_BATCH}"
+              f" x {DIST_SEQ} (one NCCL rank), and manual TP at tp 2 on B "
+              f"{DIST2_BATCH} x {DIST2_SEQ} (two gloo ranks)")
+
+
+def dist_kernel(torch, label, b, s, hq, hkv, pairs, reps, flush):
+    """The flash kernel at one of the ``DIST`` path's shapes (B ``b``, ``s``
+    rows, causal, ``hq`` q heads over ``hkv`` kv heads of 128, bf16):
+    launched once on its tensor-core body and held row by row against its
+    float32 plain version at each (batch row, q head) of ``pairs`` with that
+    head's kv head (the whole plain version would hold a float32 score
+    tensor of 4.3 GB a head and row at 32,768), in query chunks of 4,096
+    (``q_offset``); then timed beside its bound, its plain version on batch
+    row 0, q head 0, and one SDPA call (never called by the port)."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ops, ref
+    g = torch.Generator(device="cuda").manual_seed(53)
+    hd, group = HD, hq // hkv
+    q = torch.randn((b, s, hq, hd), generator=g, device="cuda").bfloat16()
+    k, v = (torch.randn((b, s, hkv, hd), generator=g,
+                        device="cuda").bfloat16() for _ in range(2))
+    ops.reset_launch_counts()
+    got = kfa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    if (ops.body_counts()["flash_attention/tensor_core"],
+            ops.body_counts()["flash_attention/cuda_core"]) != (1, 0):
+        raise AssertionError(f"{label}: flash not on the tensor cores "
+                             f"({ops.body_counts()})")
+    err, ratio, chunk = 0.0, 0.0, 4096
+    for row, head in pairs:
+        rs, qs = slice(row, row + 1), slice(head, head + 1)
+        ks = slice(head // group, head // group + 1)
+        for c0 in range(0, s, chunk):
+            want = ref.mha_reference(
+                q[rs, c0:c0 + chunk, qs].float(),
+                k[rs, :c0 + chunk, ks].float(),
+                v[rs, :c0 + chunk, ks].float(), causal=True, q_offset=c0)
+            d = (got[rs, c0:c0 + chunk, qs].float() - want).abs().amax(-1)
+            lim = ROW_REL * want.abs().amax(-1) + ROW_ATOL
+            err = max(err, float(d.max()))
+            ratio = max(ratio, float((d / lim).max()))
+    if not math.isfinite(ratio) or ratio > 1:
+        raise AssertionError(f"{label}: a row's error is {ratio:.3f} of its "
+                             f"limit (max abs err {err:.3e})")
+    log(f"  flash at {label}: (row, q head) {list(pairs)} max abs err "
+        f"{err:.3e}, worst row at {ratio:.3f} of its limit "
+        f"({ROW_REL:.4g}*max|row| + {ROW_ATOL})")
+    del got
+    b_ms, b_by = bound_ms(2 * (2 * q.numel() + k.numel() + v.numel()),
+                          4 * hq * hd * flash_pairs(b, s, s, True),
+                          BF16_FLOPS)
+    one = (slice(0, 1), slice(None), slice(0, 1))
+    rec = dict(kernel="flash_attention", shape=label, batch=b, seq=s,
+               q_heads=hq, kv_heads=hkv, head_dim=hd,
+               checked_pairs=[list(p) for p in pairs],
+               **kernel_ms(torch, lambda: kfa.flash_attention(q, k, v),
+                           reps, flush),
+               plain_ms=time_ms(torch, lambda: ref.mha_reference(
+                   q[one], k[one], v[one]), 2, 1, flush),
+               plain_on="batch row 0, q head 0 (1 of "
+                        f"{b * hq} row-heads)",
+               library_ms=time_ms(torch, sdpa_flash(torch, q, k, v), reps,
+                                  flush=flush),
+               bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+               err_over_tol=ratio)
+    return rec
+
+
+def dist_kernels(torch, cfg, flush):
+    """``dist_kernel`` at every shape the ``DIST`` path launches flash at:
+    the reference forward's (B 2 x ``DIST_SEQ``, 32 q over 8 kv heads: G
+    4), the manual-TP prefill's at tp 1 (32 q heads over the 32 kv heads
+    they select: G 1), a tp = 16 rank's (2 q heads at G 1), the pipeline's
+    micro-batch (B 1, G 4) and a rank's of the two-rank manual-TP run (B
+    ``DIST2_BATCH`` x ``DIST2_SEQ``, 16 q heads at G 1; that run's own
+    forward is the pipeline's shape over its first ``DIST2_SEQ`` rows).
+    Keyed by run."""
+    hq, hkv, b, s = cfg.n_heads, cfg.n_kv_heads, DIST_BATCH, DIST_SEQ
+    ends = ((0, 0), (b - 1, hq - 1))
+    # three q heads of three kv heads, at group positions 0, 1 and 3
+    spread = ((0, 0), (0, hq // 2 + 1), (0, hq - 1))
+    shapes = {
+        "forward": (f"the forward (B {b}, {s}, {hq} q over {hkv} kv heads: "
+                    f"G {hq // hkv})", b, s, hq, hkv,
+                    ((0, 0), (0, hq // 2 + 1), (b - 1, hq - 1))),
+        "tp1": (f"tp 1 (B {b}, {s}, {hq} q heads at G 1)", b, s, hq, hq,
+                ends),
+        "tp16": (f"a tp = 16 rank (B {b}, {s}, {hq // 16} q heads at G 1)",
+                 b, s, hq // 16, hq // 16, ((0, 0), (b - 1, hq // 16 - 1))),
+        "pipeline": (f"a pipeline micro-batch (B 1, {s}, {hq} q over {hkv} "
+                     f"kv heads: G {hq // hkv})", 1, s, hq, hkv, spread),
+        "tp2": (f"a tp = 2 rank (B {DIST2_BATCH}, {DIST2_SEQ}, {hq // 2} q "
+                f"heads at G 1)", DIST2_BATCH, DIST2_SEQ, hq // 2, hq // 2,
+                ((0, 0), (0, hq // 2 - 1))),
+    }
+    out = {}
+    for key, (label, *shape) in shapes.items():
+        out[key] = r = dist_kernel(torch, label, *shape, 5, flush)
+        log(f"  DIST kernel {r['shape']}: {r['ms']:.3f} ms (bound "
+            f"{r['bound_ms']:.3f}, {r['bound_by']}; SDPA "
+            f"{r['library_ms']:.3f}; plain {r['plain_ms']:.3f} on "
+            f"{r['plain_on']})")
+    log("DIST_KERNELS " + json.dumps(out))
+    return out
+
+
+def _free_port():
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        return sk.getsockname()[1]
+
+
+def _granite_inputs(torch, cfg, batch, seq):
+    """granite-3-8b's random weights (seed 0) and tokens (seed 1) on the
+    card: the same in every process that asks."""
+    from repro_torch.models.model import Model
+    model = Model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    tokens = torch.randint(0, cfg.vocab, (batch, seq),
+                           generator=torch.Generator(
+                               device="cuda").manual_seed(1),
+                           dtype=torch.int32, device="cuda")
+    return model, params, tokens
+
+
+def manual_tp_plain(torch, cfg, params, tokens, tp):
+    """The manual-TP prefill's arithmetic at ``tp`` ranks in one process,
+    with no process group: every rank's sharded GEMMs on the same shard
+    views (``manual_tp.shard_params``) over the whole sequence, its partial
+    sums added in float32 and rounded to bf16 once, as the reduce-scatter
+    does; attention through one flash launch a layer over all q heads at
+    the model's group (a G 1 launch on selected kv heads gives its bits).
+    Rank offsets, kv-head selection and the collectives are what it leaves
+    out, so the two-rank program must give its bits. Returns (the last
+    token's logits over the padded vocab, {"k", "v"}: (L, B, S, Hkv,
+    hd))."""
+    from repro_torch.distributed import manual_tp
+    from repro_torch.kernels import ops
+    from repro_torch.models.common import apply_rope, rmsnorm, silu
+    b, s = tokens.shape
+    hq, hkv, hd, eps = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.norm_eps
+    shards = [manual_tp.shard_params(cfg, params, r, tp) for r in range(tp)]
+    full = params["blocks"]["slot00"]["mixer"]
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=tokens.device)[None].expand(b, s)
+    x = params["embed"]["tok"][tokens.long()]
+    ks, vs = [], []
+    for i in range(cfg.n_periods):
+        mix = [sh["blocks"]["slot00"]["mixer"] for sh in shards]
+        mlp = [sh["blocks"]["slot00"]["mlp"] for sh in shards]
+        xn = rmsnorm(x, full["norm"][i], eps)
+        q = torch.cat([(xn @ m["w_q"][i]).reshape(b, s, hq // tp, hd)
+                       for m in mix], 2)
+        k = apply_rope((xn @ full["w_k"][i]).reshape(b, s, hkv, hd),
+                       positions, cfg.rope_theta)
+        v = (xn @ full["w_v"][i]).reshape(b, s, hkv, hd)
+        out = ops.flash_attention(apply_rope(q, positions, cfg.rope_theta),
+                                  k, v, causal=True).chunk(tp, 2)
+        y = sum((o.reshape(b, s, -1) @ m["w_o"][i]).float()
+                for o, m in zip(out, mix))
+        x = x + y.to(x.dtype)
+        xn = rmsnorm(x, mlp[0]["norm"][i], eps)
+        y = sum(((silu(xn @ m["w_gate"][i]) * (xn @ m["w_up"][i]))
+                 @ m["w_down"][i]).float() for m in mlp)
+        x = x + y.to(x.dtype)
+        ks.append(k)
+        vs.append(v)
+    last = rmsnorm(x, params["final_norm"], eps)[:, -1]
+    logits = torch.cat([last @ sh["lm_head"] for sh in shards], -1)
+    return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
+
+
+def dist_rank(torch, rank, port):
+    """One rank of the two-rank manual-TP prefill (``dist_two_ranks``): in
+    its own process, on a gloo process group of 2 over CUDA tensors. On the
+    full weights it runs the one-rank forward (``Model.prefill(paged=
+    False)``) and ``manual_tp_plain`` at tp 2 first, then its manual-TP
+    prefill at tp 2 on its shards with its launches counted from 0. Its
+    vocab columns of the last-token logits are held against both within
+    ``DIST_REL`` of the forward's largest |logit|; its sequence slice of
+    every K/V layer against ``manual_tp_plain``'s within ``DIST_KV_REL`` of
+    the layer's largest |value| plus ``DIST_KV_ATOL``, and against the
+    forward's, reported (the partial sums round once more than the
+    forward's single GEMM, and that drift grows with depth). Prints
+    ``DIST_RANK`` and its record."""
+    from datetime import timedelta
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import manual_tp
+    cfg = get_config("granite-3-8b")
+    b, s, tp = DIST2_BATCH, DIST2_SEQ, 2
+    s_loc, v_loc = s // tp, cfg.padded_vocab // tp
+    model, params, tokens = _granite_inputs(torch, cfg, b, s)
+    with torch.no_grad():
+        fwd_logits, fwd_cache = model.prefill(params, tokens, s,
+                                              paged=False)[:2]
+        plain_logits, plain_cache = manual_tp_plain(torch, cfg, params,
+                                                    tokens, tp)
+    fwd_cache = fwd_cache["slot00"]
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=tp,
+                            timeout=timedelta(seconds=120))
+    try:
+        # the mesh only names the group; gloo moves the CUDA tensors
+        mesh = init_device_mesh("cpu", (1, tp),
+                                mesh_dim_names=("data", "model"))
+        fn = manual_tp.make_manual_prefill(cfg, mesh, b, s, tp=tp)[0]
+        shards = manual_tp.shard_params(cfg, params, rank, tp)
+        dist.barrier()
+        (logits, cache), dev_ms, wall, peak, launches, bodies = _timed_run(
+            torch, lambda: fn(shards, tokens))
+    finally:
+        dist.destroy_process_group()
+    # this rank's vocab columns that are real tokens
+    cols = torch.arange(rank * v_loc, (rank + 1) * v_loc, device="cuda")
+    real = cols < cfg.vocab
+    scale = float(fwd_logits[:, :cfg.vocab].float().abs().max())
+    got = logits[:, real].float()
+    lg = {"max_abs_logit": scale, "columns": [rank * v_loc,
+                                              (rank + 1) * v_loc]}
+    for name, want in (("forward", fwd_logits), ("plain", plain_logits)):
+        err = float((got - want[:, cols[real]].float()).abs().max())
+        lg[name] = {"max_abs_err": err, "err_over_max": err / scale}
+    rows = slice(rank * s_loc, (rank + 1) * s_loc)
+    kv = {}
+    for ref_name, ref_cache in (("forward", fwd_cache),
+                                ("plain", plain_cache)):
+        ratios = []
+        for name in ("k", "v"):
+            for layer in range(cfg.n_layers):
+                want = ref_cache[name][layer][:, rows].float()
+                d = float((cache[name][layer].float() - want).abs().max())
+                lim = DIST_KV_REL * float(
+                    ref_cache[name][layer].float().abs().max()) + DIST_KV_ATOL
+                ratios.append(d / lim if math.isfinite(d) else math.inf)
+        n = cfg.n_layers
+        kv[ref_name] = {"worst_over_limit": max(ratios),
+                        "k_by_layer": ratios[:n], "v_by_layer": ratios[n:]}
+    print("DIST_RANK " + json.dumps({
+        "rank": rank, "device_ms": dev_ms, "wall_ms": wall,
+        "max_memory_allocated": peak, "launches": launches, "bodies": bodies,
+        "logits": lg, "kv": kv}), flush=True)
+
+
+def dist_two_ranks(torch, cfg):
+    """The manual-TP prefill at tp 2 as two processes on this card
+    (``dist_rank``; NCCL refuses two ranks on one GPU, so they talk through
+    gloo, which takes CUDA tensors for the all-gather, reduce-scatter and
+    all-reduce manual TP uses): granite-3-8b at full width and depth on
+    tokens of B ``DIST2_BATCH`` x ``DIST2_SEQ``. Each rank's flash launches
+    are counted from 0 (40, on the tensor cores, nothing else); its logits
+    within ``DIST_REL`` of the forward's largest |logit|, against the
+    forward and against ``manual_tp_plain``; each K/V layer against
+    ``manual_tp_plain``'s within ``DIST_KV_REL`` of its largest |value| plus
+    ``DIST_KV_ATOL``. Both processes are killed after 300 s. Returns
+    {rank: record}."""
+    port = str(_free_port())
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--dist-rank",
+         str(r), port], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for r in range(2)]
+    t0 = time.perf_counter()
+    outs = []
+    for p in procs:
+        try:
+            outs.append(p.communicate(
+                timeout=max(1.0, 300 - (time.perf_counter() - t0))))
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            outs.append(p.communicate())
+    recs = {}
+    for r, (p, (so, se)) in enumerate(zip(procs, outs)):
+        lines = [ln for ln in so.splitlines() if ln.startswith("DIST_RANK ")]
+        if p.returncode != 0 or not lines:
+            raise AssertionError(f"DIST tp 2 rank {r}: exit {p.returncode}: "
+                                 f"{se.strip()[-2000:]}")
+        rec = json.loads(lines[-1][len("DIST_RANK "):])
+        label = f"manual-TP prefill (tp 2, rank {r})"
+        _check_dist_run(label, rec, rec["launches"], rec["bodies"],
+                        cfg.n_layers)
+        lg, kv = rec["logits"], rec["kv"]
+        log(f"  {label} logits (columns {lg['columns']}), of max |logit| "
+            f"{lg['max_abs_logit']:.3f}: vs the forward "
+            f"{lg['forward']['err_over_max']:.3e}, vs manual_tp_plain "
+            f"{lg['plain']['err_over_max']:.3e} (limit {DIST_REL:.4g}); "
+            f"K/V worst layer vs manual_tp_plain at "
+            f"{kv['plain']['worst_over_limit']:.3f} of its limit, vs the "
+            f"forward at {kv['forward']['worst_over_limit']:.3f} (reported; "
+            f"K layer 0 at {kv['forward']['k_by_layer'][0]:.3f}, layer "
+            f"{cfg.n_layers - 1} at {kv['forward']['k_by_layer'][-1]:.3f})")
+        for ref_name in ("forward", "plain"):
+            e = lg[ref_name]["err_over_max"]
+            if not math.isfinite(e) or e > DIST_REL:
+                raise AssertionError(f"DIST {label}: logits vs {ref_name} "
+                                     f"off by {e} of the largest |logit|")
+        if not kv["plain"]["worst_over_limit"] <= 1:
+            raise AssertionError(f"DIST {label}: a K/V layer at "
+                                 f"{kv['plain']['worst_over_limit']} of its "
+                                 f"limit against manual_tp_plain")
+        recs[r] = rec
+    return recs
+
+
+def _timed_run(torch, fn):
+    """``fn()`` with its launches counted from 0: (its output, device ms
+    between CUDA events around it, wall ms to a synchronize, peak
+    allocated bytes, launch counts, body counts)."""
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    a.record()
+    with torch.no_grad():
+        out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    return (out, a.elapsed_time(b), wall, torch.cuda.max_memory_allocated(),
+            ops.launch_counts(), ops.body_counts())
+
+
+def _check_dist_run(label, rec, launches, bodies, want_flash):
+    if (launches["flash_attention"] != want_flash
+            or bodies["flash_attention/tensor_core"] != want_flash
+            or any(n for k, n in launches.items() if k != "flash_attention")):
+        raise AssertionError(f"DIST {label}: launches {launches}, bodies "
+                             f"{bodies}: want flash {want_flash} on the "
+                             f"tensor cores and nothing else")
+    log(f"  {label}: device {rec['device_ms']:.2f} ms, wall "
+        f"{rec['wall_ms']:.2f} ms, peak allocated "
+        f"{rec['max_memory_allocated'] / 2**30:.2f} GiB, flash launches "
+        f"{want_flash} (tensor cores)")
+
+
+def _logits_vs(torch, label, got, want, vocab):
+    """Last-token logits over the real vocab against the reference
+    forward's: the largest |diff| within DIST_REL of its largest |logit|;
+    the argmax agreement reported."""
+    g, w = got[:, :vocab].float(), want[:, :vocab].float()
+    err = float((g - w).abs().max())
+    scale = float(w.abs().max())
+    agree = float((g.argmax(-1) == w.argmax(-1)).float().mean())
+    log(f"  {label} logits vs the forward: max abs err {err:.4f} = "
+        f"{err / scale:.3e} of max |logit| {scale:.3f} (limit "
+        f"{DIST_REL:.4g}); argmax agrees on {agree:.3f} of rows (reported)")
+    if not math.isfinite(err) or err > DIST_REL * scale:
+        raise AssertionError(f"DIST {label}: logits off by {err} > "
+                             f"{DIST_REL} x {scale}")
+    return {"max_abs_err": err, "max_abs_logit": scale,
+            "err_over_max": err / scale, "argmax_agree": agree}
+
+
+def dist_phase(torch, smi):
+    """The ``DIST`` phase: granite-3-8b at full width and depth (40 layers,
+    d 4096, 32 q / 8 kv heads of 128, d_ff 12800, bf16, 15.60 GiB) on random
+    weights from a seeded generator, tokens of B ``DIST_BATCH`` x
+    ``DIST_SEQ`` (the ``prefill_32k`` cell's share of one data rank). First
+    the flash kernel alone at every shape the phase launches it at
+    (``dist_kernels``). Then the manual-TP prefill at tp 2 as two gloo
+    processes on the card (``dist_two_ranks``, B ``DIST2_BATCH`` x
+    ``DIST2_SEQ``). Then, on a one-rank NCCL process group: the reference
+    forward (``Model.prefill(paged=False)``), the manual-TP prefill at tp 1
+    (``distributed/manual_tp.py``) and the pipelined prefill at one stage
+    with ``DIST_MICRO`` micro-batches (``distributed/pp_spmd.py``), each
+    run's launches counted from 0 (flash 40, 40 and 80, all on the tensor
+    cores, nothing else). Held: each run's logits within ``DIST_REL`` of the
+    forward's largest |logit|, each manual-TP K/V layer within
+    ``DIST_KV_REL`` of the forward's layer's largest |value| plus
+    ``DIST_KV_ATOL``. The pipeline runs at one stage only: gloo refuses
+    send/recv of CUDA tensors, so its two-stage semantics are held on the
+    CPU (``tests/test_torch_distributed.py``). Returns (the launches of the
+    manual-TP runs, both ranks of tp 2 included, and the pipeline's,
+    summed; the kernel rows)."""
+    import gc
+    from datetime import timedelta
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import manual_tp, pp_spmd
+    t_phase = time.perf_counter()
+    cfg = get_config("granite-3-8b")
+    assert cfg.n_layers == 40 and cfg.dtype == "bfloat16", cfg
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    kernels = dist_kernels(torch, cfg, flush)
+    del flush
+    gc.collect()
+    torch.cuda.empty_cache()
+    two = dist_two_ranks(torch, cfg)
+
+    model, params, tokens = _granite_inputs(torch, cfg, DIST_BATCH, DIST_SEQ)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1,
+                            timeout=timedelta(seconds=120),
+                            device_id=torch.device("cuda", 0))
+    runs, total = {}, {}
+    try:
+        def record(label, out, *rest):
+            dev_ms, wall, peak, launches, bodies = rest
+            runs[label] = {"device_ms": dev_ms, "wall_ms": wall,
+                           "max_memory_allocated": peak,
+                           "launches": launches}
+            return out, launches, bodies
+
+        ref_out, launches, bodies = record("forward", *_timed_run(
+            torch, lambda: model.prefill(params, tokens, DIST_SEQ,
+                                         paged=False)))
+        _check_dist_run("reference forward (Model.prefill, paged=False)",
+                        runs["forward"], launches, bodies, cfg.n_layers)
+        ref_logits = ref_out[0]
+        ref_cache = ref_out[1]["slot00"]
+
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        fn = manual_tp.make_manual_prefill(cfg, mesh, DIST_BATCH, DIST_SEQ,
+                                           tp=1)[0]
+        shards = manual_tp.shard_params(cfg, params, 0, 1)
+        (tp_logits, tp_cache), launches, bodies = record(
+            "manual_tp", *_timed_run(torch, lambda: fn(shards, tokens)))
+        _check_dist_run("manual-TP prefill (tp 1)", runs["manual_tp"],
+                        launches, bodies, cfg.n_layers)
+        total = dict(launches)
+        runs["manual_tp"]["logits"] = _logits_vs(
+            torch, "manual TP", tp_logits, ref_logits, cfg.vocab)
+        kv_worst = 0.0
+        for name in ("k", "v"):
+            for layer in range(cfg.n_layers):
+                want = ref_cache[name][layer].float()
+                d = float((tp_cache[name][layer].float() - want).abs().max())
+                lim = DIST_KV_REL * float(want.abs().max()) + DIST_KV_ATOL
+                kv_worst = max(kv_worst, d / lim)
+                if not math.isfinite(d) or d > lim:
+                    raise AssertionError(f"DIST manual TP {name}[{layer}]: "
+                                         f"{d} > {lim}")
+        runs["manual_tp"]["kv_worst_over_limit"] = kv_worst
+        log(f"  manual TP K/V: every layer within its limit ("
+            f"{DIST_KV_REL:.4g}*max|layer| + {DIST_KV_ATOL}); worst at "
+            f"{kv_worst:.3f} of it")
+        del tp_cache, ref_cache, ref_out, shards
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        mesh = init_device_mesh("cuda", (1, 1, 1),
+                                mesh_dim_names=("stage", "data", "model"))
+        fn = pp_spmd.make_pp_prefill(cfg, mesh, DIST_BATCH, DIST_SEQ,
+                                     n_stages=1, n_micro=DIST_MICRO)[0]
+        stage = model.slice_stage_params(params, 1, 0)
+        pp_logits, launches, bodies = record(
+            "pipeline", *_timed_run(torch, lambda: fn(stage, tokens)))
+        _check_dist_run(f"pipelined prefill (1 stage, {DIST_MICRO} "
+                        f"micro-batches)", runs["pipeline"], launches,
+                        bodies, cfg.n_layers * DIST_MICRO)
+        total = {k: n + launches[k] + sum(r["launches"][k]
+                                          for r in two.values())
+                 for k, n in total.items()}
+        runs["pipeline"]["logits"] = _logits_vs(
+            torch, "pipeline", pp_logits, ref_logits, cfg.vocab)
+    finally:
+        dist.destroy_process_group()
+    rec = {"device": smi, "model": "granite-3-8b", "layers": cfg.n_layers,
+           "batch": DIST_BATCH, "seq": DIST_SEQ, "micro_batches": DIST_MICRO,
+           "ranks": 1, "backend": "nccl", "runs": runs, "launches": total,
+           "tp2": {"batch": DIST2_BATCH, "seq": DIST2_SEQ, "backend": "gloo",
+                   "ranks": two},
+           "limits": {"logits_rel": DIST_REL, "kv_rel": DIST_KV_REL,
+                      "kv_atol": DIST_KV_ATOL},
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"  DIST phase: {rec['phase_s']:.1f} s")
+    log("DIST " + json.dumps(rec))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total, kernels
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -3679,6 +4193,11 @@ def main():
     ap.add_argument("--train", action="store_true",
                     help="build, then only the training phase (no result "
                          "line)")
+    ap.add_argument("--dist", action="store_true",
+                    help="build, then only the distributed-prefill phase "
+                         "(no result line)")
+    ap.add_argument("--dist-rank", nargs=2, metavar=("RANK", "PORT"),
+                    help=argparse.SUPPRESS)  # one rank of dist_two_ranks
     args = ap.parse_args()
 
     import torch
@@ -3696,6 +4215,9 @@ def main():
     # stated and set)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.dist_rank:
+        dist_rank(torch, int(args.dist_rank[0]), args.dist_rank[1])
+        return
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -3753,6 +4275,10 @@ def main():
         log(TRAIN_TITLE)
         train_phase(torch, smi)
         return
+    if args.dist:
+        log(DIST_TITLE)
+        dist_phase(torch, smi)
+        return
 
     log("== kernels vs plain versions")
     rows = kernel_phase(torch, args.quick)
@@ -3762,7 +4288,8 @@ def main():
     families_launches = {k: None for k in rows}
     encdec_vlm_launches = {k: None for k in rows}
     train_launches = {k: None for k in rows}
-    g1, encdec_vlm, train_kernel_row = {}, {}, None
+    dist_launches = {k: None for k in rows}
+    g1, encdec_vlm, train_kernel_row, dist_rows = {}, {}, None, None
     if not args.quick:
         import gc
         from repro_torch.configs import get_config
@@ -3810,6 +4337,11 @@ def main():
         log(TRAIN_TITLE)
         tr, train_kernel_row = train_phase(torch, smi)
         train_launches = {k: tr.get(k, 0) for k in rows}
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(DIST_TITLE)
+        di, dist_rows = dist_phase(torch, smi)
+        dist_launches = {k: di.get(k, 0) for k in rows}
 
     kernels = []
     for name, source, replaces in KERNELS:
@@ -3820,6 +4352,7 @@ def main():
                         "launches_families": families_launches[name],
                         "launches_encdec_vlm": encdec_vlm_launches[name],
                         "launches_train": train_launches[name],
+                        "launches_dist": dist_launches[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
@@ -3835,7 +4368,9 @@ def main():
                             for label, r in encdec_vlm.items()
                             if r["kernel"] == name},
                         "train": (train_kernel_row if name == "flash_attention"
-                                  else None)})
+                                  else None),
+                        "dist": (dist_rows if name == "flash_attention"
+                                 else None)})
     # every pl.pallas_call of the repo has its kernel above
     print(json.dumps({"kernels": kernels, "not_ported": []}))
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,9 @@
 Models call these wrappers. A CPU tensor takes the kernel's plain PyTorch
 version (``kernels/ref.py``); a CUDA tensor takes the hand-written CUDA
 kernel, which launches or raises. There is no switch that runs the plain
-version on the card.
+version on the card. A tensor on the ``meta`` device (the dry run's shapes,
+``launch/``) also takes the plain version, which there computes shapes and
+dtypes only, no arithmetic, and counts no launch.
 
 Each kernel counts its launches (``launch_counts``), so a run can show
 that its attention and its recurrences went through the kernels; the
@@ -65,7 +67,7 @@ def sanitize_mode() -> bool:
 def _on_card(t) -> bool:
     if t.device.type == "cuda":
         return True
-    if t.device.type == "cpu":
+    if t.device.type in ("cpu", "meta"):
         return False
     raise ValueError(f"no kernel for device {t.device}")
 

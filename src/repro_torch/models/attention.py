@@ -41,6 +41,10 @@ from repro_torch.models.common import ParamDef, apply_rope, as_dtype
 # (copy_pages, migration gather) carries them automatically.
 KV_QUANT_LEAVES = ("k_scale", "k_zero", "v_scale", "v_zero")
 
+# the slot-contiguous cache's logical axes (L, B, S, Hkv, hd), as the
+# reference names them for its sharding rules
+KV_CACHE_AXES = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+
 
 def attn_defs(cfg: ModelConfig, cross: bool = False) -> dict:
     d, hd = cfg.d_model, cfg.head_dim

@@ -115,6 +115,14 @@ def param_specs(defs):
     return map_defs(lambda d: resolve(d.axes), defs)
 
 
+def param_structs(defs, dtype):
+    """The params' shapes and dtype as tensors on the ``meta`` device (the
+    reference's ``jax.ShapeDtypeStruct`` tree): no storage, no values."""
+    dt = as_dtype(dtype)
+    return map_defs(lambda d: torch.empty(d.shape, dtype=dt, device="meta"),
+                    defs)
+
+
 def param_bytes(defs, bytes_per_param=2) -> int:
     return sum(math.prod(d.shape) for d in tree_leaves(defs)) \
         * bytes_per_param

@@ -18,8 +18,8 @@ The decoder takes the encoder memory's cross K/V precomputed (the serve
 path) or ``memory=`` (training: the cross K/V computed inline, as the
 reference's training branch), and ``remat`` recomputes each decoder layer
 in the backward, as the reference's ``jax.checkpoint`` of its scan step.
-Not ported yet: the reference's ``cross_kv_structs`` (shape structs for
-the sharded dry run).
+``cross_kv_structs`` and ``init_self_cache(as_structs=True)`` give the
+caches' shapes on the ``meta`` device for the dry run.
 """
 
 from __future__ import annotations
@@ -96,6 +96,15 @@ def precompute_cross_kv(cfg: ModelConfig, params: dict, memory):
     return {"k": torch.stack(ks), "v": torch.stack(vs)}
 
 
+def cross_kv_structs(cfg: ModelConfig, batch: int, dtype) -> dict:
+    """``precompute_cross_kv``'s shapes and dtype on the ``meta`` device."""
+    shp = (cfg.n_layers, batch, cfg.n_audio_frames, cfg.n_kv_heads,
+           cfg.head_dim)
+    dt = as_dtype(dtype)
+    return {"k": torch.empty(shp, dtype=dt, device="meta"),
+            "v": torch.empty(shp, dtype=dt, device="meta")}
+
+
 def decoder(cfg: ModelConfig, params: dict, tokens, positions, *,
             memory=None, cross_kv: Optional[dict] = None,
             self_cache: Optional[dict] = None, decode: bool = False,
@@ -148,9 +157,11 @@ def head(cfg: ModelConfig, params: dict, x):
 
 
 def init_self_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype,
-                    device=None) -> dict:
+                    device=None, as_structs: bool = False) -> dict:
     """The decoder's self-attention slabs, zero-filled: {"k", "v"} of
-    (L, B, max_seq, Hkv, hd)."""
+    (L, B, max_seq, Hkv, hd); on the ``meta`` device with ``as_structs``."""
+    if as_structs:
+        device = "meta"
     shp = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
     dt = as_dtype(dtype)
     return {"k": torch.zeros(shp, dtype=dt, device=device),

@@ -65,7 +65,7 @@ def init_mamba_cache(cfg: ModelConfig, n_periods: int, batch: int, dtype,
 
 
 # the caches' logical axes, as the reference names them for its sharding
-# rules (nothing in the port shards yet)
+# rules (``transformer.cache_axes``)
 MAMBA_CACHE_AXES = {
     "conv": ("batch", None, "ffn"),
     "h": ("batch", "ffn", "state"),

@@ -18,7 +18,7 @@ from repro_torch.kernels.ragged_attention import TILE_Q
 from repro_torch.models import encdec, transformer
 from repro_torch.models.common import (ParamDef, as_dtype, cross_entropy,
                                        init_params, param_bytes, param_specs,
-                                       tree_map)
+                                       param_structs, tree_map)
 
 AUX_LOSS_WEIGHT = 0.01
 Z_LOSS = 1e-4
@@ -51,6 +51,10 @@ class Model:
     def specs(self):
         """PartitionSpec tree (resolved under the active mesh rules)."""
         return param_specs(self.defs)
+
+    def structs(self):
+        """The params' shapes and dtype on the ``meta`` device."""
+        return param_structs(self.defs, self.dtype)
 
     def bytes(self) -> int:
         return param_bytes(self.defs, self.dtype.itemsize)
@@ -132,6 +136,33 @@ class Model:
         return ce + AUX_LOSS_WEIGHT * aux, {"ce": ce, "aux": aux}
 
     # ------------------------------------------------------------- serving
+    def init_cache(self, batch: int, max_seq: int, as_structs: bool = False,
+                   *, device=None):
+        """Zeroed slot-contiguous caches on ``device`` (default: the card),
+        as the reference's ``Model.init_cache``; with ``as_structs`` their
+        shapes and dtypes on the ``meta`` device. An encoder-decoder's is
+        {"self": the decoder's slabs, "cross": the encoder memory's K/V
+        (shapes only: a prefill computes them; None otherwise)}."""
+        cfg = self.cfg
+        dev = None if as_structs else resolve_device(device)
+        if cfg.is_encdec:
+            return {"self": encdec.init_self_cache(
+                        cfg, batch, max_seq, self.dtype, device=dev,
+                        as_structs=as_structs),
+                    "cross": (encdec.cross_kv_structs(cfg, batch, self.dtype)
+                              if as_structs else None)}
+        return transformer.init_cache(cfg, batch, max_seq, self.dtype,
+                                      device=dev, as_structs=as_structs)
+
+    def cache_axes(self) -> dict:
+        """``init_cache``'s logical axes, leaf for leaf."""
+        cfg = self.cfg
+        if cfg.is_encdec:
+            a = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+            c = ("layers", "batch", "seq", "kv_heads", "head_dim")
+            return {"self": {"k": a, "v": a}, "cross": {"k": c, "v": c}}
+        return transformer.cache_axes(cfg)
+
     def prefill(self, params, tokens, max_seq: int, *, page_size: int = 16,
                 kv_dtype=None, paged: bool = True, prefix_embeds=None,
                 frames=None):

@@ -63,6 +63,14 @@ def init_rwkv_cache(cfg: ModelConfig, n_periods: int, batch: int, dtype,
     }
 
 
+# the caches' logical axes, as the reference names them for its sharding
+# rules (``transformer.cache_axes``)
+RWKV_CACHE_AXES = {
+    "shift": ("batch", None, "embed"),
+    "wkv": ("batch", "heads", "head_dim", None),
+}
+
+
 def _token_shift(x, shift_state):
     """Previous-token tensor: concat(state, x[:, :-1])."""
     return torch.cat([shift_state.to(x.dtype), x[:, :-1]], dim=1)

@@ -92,7 +92,8 @@ def lm_defs(cfg: ModelConfig) -> dict:
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype, *,
                n_periods: Optional[int] = None, paged: bool = False,
                n_pages: Optional[int] = None,
-               page_size: Optional[int] = None, kv_dtype=None, device=None):
+               page_size: Optional[int] = None, kv_dtype=None, device=None,
+               as_structs: bool = False):
     """Stacked per-period caches, zero-filled, as the reference's
     ``transformer.py::init_cache``. Attention slots: ``paged=False``, the
     slot-contiguous slabs {"k", "v"} (np, B, S, Hkv, hd); ``paged=True``,
@@ -102,8 +103,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype, *,
     the pool storage dtype; int8 adds per-row scale/zero leaves
     (attention.KV_QUANT_LEAVES, f32). rwkv slots hold their slot-indexed
     {"shift", "wkv"} states and mamba slots their {"conv", "h"} states, on
-    either layout."""
+    either layout. ``as_structs`` gives them on the ``meta`` device
+    (shapes and dtypes only), whatever ``device`` says."""
     _check_supported(cfg)
+    if as_structs:
+        device = "meta"
     np_ = n_periods if n_periods is not None else cfg.n_periods
     if kv_dtype is not None and not paged:
         raise ValueError("kv_dtype overrides the *paged* pool storage dtype")
@@ -133,6 +137,22 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype, *,
                                          device=device)
         cache[f"slot{i:02d}"] = slot
     return cache
+
+
+def cache_axes(cfg: ModelConfig) -> dict:
+    """The slot-contiguous caches' logical axes, leaf for leaf."""
+    axes = {}
+    for i, (mix, _) in enumerate(_period_plan(cfg)):
+        slot = f"slot{i:02d}"
+        if mix == "attn":
+            axes[slot] = {"k": attn.KV_CACHE_AXES, "v": attn.KV_CACHE_AXES}
+        elif mix == "mamba":
+            axes[slot] = {k: ("layers",) + v
+                          for k, v in mamba_mod.MAMBA_CACHE_AXES.items()}
+        elif mix == "rwkv":
+            axes[slot] = {k: ("layers",) + v
+                          for k, v in rwkv_mod.RWKV_CACHE_AXES.items()}
+    return axes
 
 
 # ---------------------------------------------------------------------------

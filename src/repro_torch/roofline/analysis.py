@@ -22,7 +22,10 @@ Sources of the terms:
 ``analyze`` takes the port's own ``cost`` and ``mem`` dicts where the
 reference read XLA's ``cost_analysis()`` and ``memory_analysis()``:
 ``cost`` {"flops", "bytes accessed"} (recorded as ``xla_*``, not used in
-the terms) and ``mem`` {"temp_bytes", "argument_bytes"}.
+the terms) and ``mem`` {"temp_bytes", "argument_bytes"}; a ``temp_bytes``
+of None (no compiler to ask, as in the port's dry run) leaves the peak
+memory unknown (None). ``coll_bytes`` (bytes by collective kind, e.g. from
+``analytic.collective_bytes_per_device``) stands in for the HLO parse.
 """
 
 from __future__ import annotations
@@ -163,8 +166,8 @@ class Roofline:
     chips: int
     flops_total: float              # analytic, whole step
     bytes_per_device: float         # analytic HBM traffic
-    coll_bytes_per_device: Dict[str, int]   # parsed from HLO
-    peak_memory_per_device: float
+    coll_bytes_per_device: Dict[str, int]   # from HLO, or given
+    peak_memory_per_device: Optional[float]
     model_flops_total: float
     xla_flops_per_device: float = 0.0
     xla_bytes_per_device: float = 0.0
@@ -212,7 +215,8 @@ class Roofline:
             "flops_total": self.flops_total,
             "useful_ratio": self.useful_flops_ratio,
             "roofline_fraction": self.roofline_fraction,
-            "peak_mem_gb": self.peak_memory_per_device / (1 << 30),
+            "peak_mem_gb": (None if self.peak_memory_per_device is None
+                            else self.peak_memory_per_device / (1 << 30)),
             "coll_bytes": dict(self.coll_bytes_per_device),
             "xla_flops_dev": self.xla_flops_per_device,
             "xla_bytes_dev": self.xla_bytes_per_device,
@@ -232,19 +236,24 @@ def model_flops(cfg, shape) -> float:
 
 def analyze(arch: str, shape, mesh_name: str, chips: int, cost: dict,
             mem: dict, hlo_text: str, cfg,
-            policy: str = "baseline", kv_dtype=None) -> Roofline:
+            policy: str = "baseline", kv_dtype=None,
+            coll_bytes: Optional[Dict[str, int]] = None) -> Roofline:
     """``kv_dtype`` parameterizes the analytic KV-traffic term on the KV
     pool storage dtype (serving engines with quantized pages); ``None``
-    keeps the legacy bf16 assumption. ``cost`` and ``mem`` are the dicts
-    of the module docstring; ``hlo_text`` may be empty (no collectives)."""
+    keeps the legacy bf16 assumption. ``cost``, ``mem`` and ``coll_bytes``
+    are as the module docstring says; ``hlo_text`` may be empty (no
+    collectives), and is not read when ``coll_bytes`` is given."""
     train_mult = 4.0 if shape.kind == "train" else 1.0  # fwd+remat+bwd
     flops = analytic.step_flops(cfg, shape,
                                 causal_skip="skip" in policy) * train_mult
     pbytes = cfg.size_bytes()
     hbm = analytic.hbm_bytes_per_device(cfg, shape, chips, pbytes,
                                         train_mult, kv_dtype=kv_dtype)
-    coll = collective_bytes(hlo_text)
-    peak_mem = mem.get("temp_bytes", 0) + mem.get("argument_bytes", 0)
+    coll = (dict(coll_bytes) if coll_bytes is not None
+            else collective_bytes(hlo_text))
+    temp = mem.get("temp_bytes", 0)
+    peak_mem = (None if temp is None
+                else temp + mem.get("argument_bytes", 0))
     return Roofline(
         arch, shape.name, mesh_name, chips, flops, hbm, coll, peak_mem,
         model_flops(cfg, shape),

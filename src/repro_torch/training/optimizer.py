@@ -45,6 +45,18 @@ def init_state(params):
     }
 
 
+def state_structs(param_structs):
+    """``init_state``'s shapes and dtypes as tensors on the ``meta`` device:
+    float32 moments beside each param leaf and the int32 step."""
+    f32 = lambda p: torch.empty(p.shape, dtype=torch.float32,  # noqa: E731
+                                device="meta")
+    return {
+        "mu": tree_map(f32, param_structs),
+        "nu": tree_map(f32, param_structs),
+        "step": torch.empty((), dtype=torch.int32, device="meta"),
+    }
+
+
 def state_specs(defs, zero1: bool = True):
     """Optimizer-state PartitionSpecs. ZeRO-1: each state additionally
     shards its first *physically replicated* dim over the data(+pod) axes.

@@ -5,7 +5,8 @@ and the WKV6 recurrence, and the engines (both layouts; granite, rwkv,
 qwen2-moe, jamba and llava's image prefixes) and whisper's prefill and
 decode against the CPU; the attention kernels also at whisper-small's
 shapes (hd 64 at GQA group 1, non-causal over 1,500 keys, one query row
-over them) and llava-next-34b's (GQA group 7). Every test needs
+over them) and llava-next-34b's (GQA group 7); the manual-TP and pipelined
+prefills on a one-rank NCCL group against the CPU. Every test needs
 a CUDA card (marker ``cuda``) and skips without one. The file imports
 neither JAX nor the reference package, so it runs where only the port's
 dependencies are installed:
@@ -1399,3 +1400,71 @@ def test_cuda_train_step_matches_cpu(cuda, remat):
     lr1 = float(opt._schedule(acfg, torch.tensor(1)))
     for a, b in zip(tree_leaves(pg_), tree_leaves(pc)):
         assert float((a.cpu() - b).abs().max()) <= 2 * lr1 + 1e-6
+
+
+# ---------------------------------------------------------------------------
+# the distributed prefills on a one-rank NCCL group
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def nccl(cuda):
+    """A one-rank NCCL process group on the card for the test."""
+    import socket
+    from datetime import timedelta
+    import torch.distributed as dist
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1,
+                            timeout=timedelta(seconds=60))
+    yield cuda
+    dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-3-8b", "qwen1.5-32b"])
+@pytest.mark.parametrize("path", ["manual_tp", "pipeline"])
+def test_cuda_dist_prefills_match_cpu(nccl, arch, path):
+    """The manual-TP prefill at tp 1 and the pipelined prefill at one stage
+    (2 micro-batches) on the card, through the flash kernel, equal the
+    CPU's plain forward (``Model.prefill``, slot-contiguous) on the same
+    float32 smoke params: logits over the real vocab and the manual-TP K/V
+    within 1e-4 of their largest |value| (TF32 off)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.distributed import manual_tp, pp_spmd
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.model import Model
+    cfg = smoke_variant(get_config(arch))
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    tokens = torch.from_numpy(np.random.RandomState(5).randint(
+        0, cfg.vocab, (4, 32)).astype(np.int32))
+    want, wcache = model.prefill(params, tokens, 32, paged=False)
+    card = tree_map(lambda t: t.cuda(), params)
+    ops.reset_launch_counts()
+    if path == "manual_tp":
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        fn = manual_tp.make_manual_prefill(cfg, mesh, 4, 32, tp=1)[0]
+        got, cache = fn(manual_tp.shard_params(cfg, card, 0, 1),
+                        tokens.cuda())
+        for name in ("k", "v"):
+            w = wcache["slot00"][name]
+            assert (cache[name].cpu() - w).abs().max() <= \
+                1e-4 * w.abs().max()
+        flash = cfg.n_layers
+    else:
+        mesh = init_device_mesh("cuda", (1, 1, 1),
+                                mesh_dim_names=("stage", "data", "model"))
+        fn = pp_spmd.make_pp_prefill(cfg, mesh, 4, 32, n_stages=1,
+                                     n_micro=2)[0]
+        got = fn(model.slice_stage_params(card, 1, 0), tokens.cuda())
+        flash = 2 * cfg.n_layers
+    v = cfg.vocab
+    assert (got[:, :v].cpu() - want[:, :v]).abs().max() <= \
+        1e-4 * want[:, :v].abs().max()
+    assert ops.launch_counts()["flash_attention"] == flash
+    assert sum(ops.launch_counts().values()) == flash

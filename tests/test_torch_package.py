@@ -52,6 +52,12 @@ def test_import_leaves_jax_and_reference_unloaded():
             "repro_torch.workloads.applications",
             "repro_torch.workloads.generator",
             "repro_torch.configs.paper_models"} <= set(_modules())
+    # and the distributed prefills and the dry run (every src/repro module
+    # but kernels/pallas_compat.py now has its twin)
+    assert {"repro_torch.distributed.manual_tp",
+            "repro_torch.distributed.pp_spmd", "repro_torch.launch",
+            "repro_torch.launch.mesh", "repro_torch.launch.specs",
+            "repro_torch.launch.dryrun"} <= set(_modules())
 
 
 def test_no_file_imports_jax_or_reference():
@@ -204,6 +210,9 @@ TRAINING_MODULES = ["roofline/analytic.py", "roofline/analysis.py",
                     "distributed/sharding.py", "training/data.py",
                     "training/optimizer.py", "training/train_step.py",
                     "examples/train_small.py"]
+LAUNCH_MODULES = ["distributed/manual_tp.py", "distributed/pp_spmd.py",
+                  "launch/__init__.py", "launch/mesh.py", "launch/specs.py",
+                  "launch/dryrun.py"]
 
 
 def test_training_modules_leave_jax_and_reference_unloaded():
@@ -220,7 +229,24 @@ def test_training_modules_leave_jax_and_reference_unloaded():
     assert out.returncode == 0, out.stderr
 
 
-@pytest.mark.parametrize("rel", TRAINING_MODULES)
+def test_launch_modules_leave_jax_and_reference_unloaded():
+    """Importing the distributed prefills and the dry run loads neither
+    JAX nor the reference, and opens no process group."""
+    code = ("import sys\n"
+            "import torch.distributed as dist\n"
+            "import repro_torch.distributed.manual_tp, "
+            "repro_torch.distributed.pp_spmd, repro_torch.launch.mesh, "
+            "repro_torch.launch.specs, repro_torch.launch.dryrun\n"
+            "assert 'jax' not in sys.modules and 'repro' not in sys.modules"
+            "\n"
+            "assert not dist.is_initialized()\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env={"PYTHONPATH": str(SRC),
+                                         "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("rel", TRAINING_MODULES + LAUNCH_MODULES)
 def test_lint_covers_the_training_modules(tmp_path, rel):
     """Each module lints clean; a KV byte formula added to it is flagged
     outside the blessed ``roofline/analytic.py``."""
