@@ -17,6 +17,7 @@ NVIDIA H100.
     python3 chip_smoke.py --encdec-vlm  # build, then phase 10 alone
     python3 chip_smoke.py --train     # build, then phase 11 alone
     python3 chip_smoke.py --dist      # build, then phase 12 alone
+    python3 chip_smoke.py --append-skip  # build, then phase 13 alone
 
 Run from the root of a checkout. Phases:
 
@@ -203,6 +204,36 @@ Run from the root of a checkout. Phases:
    forward's largest |logit| and each manual-TP K/V layer within 2^-7 of
    the forward's layer's largest |value| plus 1e-4; argmax agreement
    reported; each run's device ms, wall ms and peak allocated bytes.
+
+13. the reference's modes (``APPEND_SKIP``): one decode step of the
+   ``append`` mode at full width (B 4, 32 q over 8 kv heads of 128, bf16
+   strips of 1,024 rows, kv_len 316/273/428/206): the softmax stats of
+   ``decode_attention_with_stats`` (plain torch on the card) against
+   float32 sums (1e-5 of the largest), their normalised output and the
+   merged new token against the contiguous decode kernel (each row within
+   2^-6 of its largest |value| plus 2e-4: two bf16 outputs, each within one
+   row limit of the float32 sum) and the merge against the float32 plain
+   decode (one row limit); the stats, the append step and the kernel
+   timed. The float32 bodies at the float32 serves' shapes, to 1e-5 of
+   their float32 plain versions: flash under causal_skip at batch 1, Sq =
+   Sk = each prompt (190, 257, 300, 412), 32 q over 8 kv heads of 128;
+   the contiguous decode kernel and the append merge at B 4 over 1,024-row
+   strips. Then granite-3-8b at full width and depth (as phase 4) through
+   ``Engine(paged=False)`` under scatter and under append x causal_skip,
+   in bf16 and with the same weights in float32, each serve's launches
+   counted from 0: flash under both modes (the kernel, not a blocked plain
+   version), the decode kernel under scatter only, bf16 launches on the
+   tensor cores; float32 streams equal token for token. Each serve's own
+   decode logits are kept (each row's argmax held to the token emitted):
+   at every step the streams share, the modes' logit shift within 2^-5 of
+   the row's largest |logit|; where the bf16 streams part, the two
+   tokens' scatter logits within that step's shift; the top-2 margins,
+   shifts and parting logits reported. Printed: each serve's flash
+   launches, device-clock ms between CUDA events and profiled device ms a
+   decode step.
+
+Every phase is timed with CUDA events around it and on the wall clock
+(``PHASES``, a line before the result).
 
 Any failed check raises, and the script exits nonzero without a result
 line. On success the second-to-last line is the ``kernels`` JSON (every
@@ -4138,6 +4169,390 @@ def dist_phase(torch, smi):
     return total, kernels
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the reference's modes, append decode and causal_skip
+# ---------------------------------------------------------------------------
+
+
+APPEND_SKIP_TITLE = ("== the reference's modes: granite-3-8b at full width "
+                     "and depth, slot-contiguous, scatter against append x "
+                     "causal_skip (bf16, then float32)")
+APPEND_LENS = DECODE_SHAPES["engine"]   # the serve's decode step, 16 tokens in
+APPEND_PAIR_REL = 2 * ROW_REL   # two bf16 outputs, each within one row limit
+APPEND_PAIR_ATOL = 2 * ROW_ATOL  # of the float32 sum: twice the limit apart
+STATS_REL = 1e-5   # the stats against float32 sums of the same terms
+
+
+def append_step_check(torch, flush):
+    """One decode step of the append mode at full width (B 4, Hq 32 over
+    Hkv 8, hd 128, bf16 strips of ``ENGINE_S`` rows, the history lengths
+    ``APPEND_LENS``): ``decode_attention_with_stats``'s (out, m, l) over
+    rows [0, pos) as plain torch on the card, and ``append_attention``'s
+    merge of the new token at ``pos``. Held: m and l against float32 sums
+    recomputed from the scores (``STATS_REL``); out / l against the
+    contiguous decode kernel over [0, pos) and the merge against the
+    kernel over [0, pos] with the token written, each row within
+    ``APPEND_PAIR_REL`` of its largest |value| plus ``APPEND_PAIR_ATOL``
+    (two bf16 outputs, each within one row limit of the float32 sum), and
+    the merge against the float32 plain decode within one row limit.
+    Times: the stats, the whole append step and the kernel."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ref
+    from repro_torch.models.attention import append_attention
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    b, s = len(APPEND_LENS), ENGINE_S
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    q, k, v = rnd(b, 1, Hq, HD), rnd(b, s, HKV, HD), rnd(b, s, HKV, HD)
+    pos = torch.tensor(APPEND_LENS, dtype=torch.int32, device="cuda")
+    rows = torch.arange(b, device="cuda")
+    k_new = k[rows, pos.long()][:, None]
+    v_new = v[rows, pos.long()][:, None]
+    out, m, l = ref.decode_attention_with_stats(q, k, v, pos)
+    g = Hq // HKV
+    sc = (q.float().reshape(b, HKV, g, HD)
+          @ k.float().permute(0, 2, 3, 1)) * ref.softmax_scale(HD)
+    valid = (torch.arange(s, device="cuda")[None, :]
+             < pos.long()[:, None])[:, None, None]
+    m_want = sc.masked_fill(~valid, -math.inf).amax(-1)
+    l_want = torch.exp(sc - m_want[..., None]).masked_fill(~valid, 0).sum(-1)
+    errs = {}
+    for name, got, want in (("m", m, m_want.reshape(b, Hq)),
+                            ("l", l, l_want.reshape(b, Hq))):
+        errs[name] = check(f"append stats {name} (tol {STATS_REL} of max)",
+                           got, want, STATS_REL * float(want.abs().max()))
+
+    def pair(name, got, want):
+        d = (got.float() - want.float()).abs().amax(-1)
+        lim = APPEND_PAIR_REL * want.float().abs().amax(-1) + APPEND_PAIR_ATOL
+        ratio = float((d / lim).max())
+        if not math.isfinite(ratio) or ratio > 1:
+            raise AssertionError(f"{name}: a row at {ratio:.3f} of its limit")
+        log(f"  {name}: max abs err {float(d.max()):.3e}, worst row at "
+            f"{ratio:.3f} of its limit ({APPEND_PAIR_REL:.4g}*max|row| + "
+            f"{APPEND_PAIR_ATOL})")
+        return float(d.max()), ratio
+
+    old = da.decode_attention(q, k, v, pos)
+    errs["stats_vs_kernel"] = pair(
+        "append stats out / l vs the decode kernel over [0, pos)",
+        (out / l[:, None, :, None]).to(torch.bfloat16), old)
+    merged = append_attention(q, k_new, v_new, k, v, pos)
+    kernel = da.decode_attention(q, k, v, pos + 1)
+    errs["merge_vs_kernel"] = pair(
+        "append merge vs the decode kernel over [0, pos]", merged, kernel)
+    errs["merge_vs_plain"] = check_rows(
+        "append merge vs the float32 plain decode over [0, pos]", merged,
+        ref.decode_attention_reference(q.float(), k.float(), v.float(),
+                                       pos + 1))
+    times = {
+        "stats_ms": time_ms(torch, lambda: ref.decode_attention_with_stats(
+            q, k, v, pos), flush=flush),
+        "append_step_ms": time_ms(torch, lambda: append_attention(
+            q, k_new, v_new, k, v, pos), flush=flush),
+        "decode_kernel_ms": time_ms(torch, lambda: da.decode_attention(
+            q, k, v, pos + 1), flush=flush)}
+    log(f"  append step at B {b}, S {s}, kv_len {APPEND_LENS}: stats "
+        f"{times['stats_ms']:.4f} ms, whole step {times['append_step_ms']:.4f}"
+        f" ms (plain torch); the decode kernel {times['decode_kernel_ms']:.4f}"
+        f" ms")
+    return {"errors": errs, "times": times, "kv_len": APPEND_LENS, "S": s}
+
+
+F32_TOL = 1e-5   # a float32 body against its float32 plain version
+
+
+def f32_kernel_check(torch, prompts):
+    """The float32 bodies that the float32 serves launch, at the serves'
+    shapes (TF32 off: the CUDA-core bodies), each against its float32
+    plain version to ``F32_TOL``: ``ops.flash_attention`` under
+    causal_skip at batch 1, Sq = Sk = each prompt's length, Hq 32 over
+    Hkv 8, hd 128, against ``ref.mha_reference``; the contiguous decode
+    kernel at B 4 over ``ENGINE_S``-row strips at ``APPEND_LENS`` against
+    ``ref.decode_attention_reference``; and the append step's merge
+    against the same. Returns {check: max abs err}."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.attention import append_attention
+    gen = torch.Generator(device="cuda").manual_seed(14)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    errs = {}
+    ops.set_attention_mode("causal_skip")
+    try:
+        for sq in sorted({len(p) for p in prompts}):
+            q, k, v = rnd(1, sq, Hq, HD), rnd(1, sq, HKV, HD), \
+                rnd(1, sq, HKV, HD)
+            errs[f"flash_Sq{sq}"] = check(
+                f"flash f32 Sq=Sk={sq}, Hq {Hq} over {HKV}, hd {HD}, "
+                f"causal_skip", ops.flash_attention(q, k, v),
+                ref.mha_reference(q, k, v), F32_TOL)
+    finally:
+        ops.set_attention_mode("masked_full")
+    b, s = len(APPEND_LENS), ENGINE_S
+    q, k, v = rnd(b, 1, Hq, HD), rnd(b, s, HKV, HD), rnd(b, s, HKV, HD)
+    pos = torch.tensor(APPEND_LENS, dtype=torch.int32, device="cuda")
+    want = ref.decode_attention_reference(q, k, v, pos + 1)
+    errs["decode"] = check(
+        f"decode (contiguous) f32, B {b} over {s}-row strips, kv_len "
+        f"{[n + 1 for n in APPEND_LENS]}", da.decode_attention(q, k, v,
+                                                              pos + 1),
+        want, F32_TOL)
+    rows = torch.arange(b, device="cuda")
+    errs["append_merge"] = check(
+        "append merge f32 over [0, pos]", append_attention(
+            q, k[rows, pos.long()][:, None], v[rows, pos.long()][:, None],
+            k, v, pos), want, F32_TOL)
+    return errs
+
+
+def capture_decode_logits(engine):
+    """Keep every decode step's logits as ``engine`` picks its tokens from
+    them: ``runner.decode`` wrapped to hold (not copy) the tensor it
+    returns, beside (rid, slot, index of the token the step emits) for
+    each request it decodes. Host bookkeeping only: no launch, no sync."""
+    runner = engine.runner
+    inner, steps = runner.decode, []
+
+    def decode(reqs, skip_slots=()):
+        h = inner(reqs, skip_slots=skip_slots)
+        steps.append(([(r.rid, r.slot, len(r.generated)) for r in reqs], h))
+        return h
+
+    runner.decode = decode
+    return steps
+
+
+MODE_SHIFT_REL = 2.0 ** -5   # the modes' logit shift, of the row's max |logit|
+
+
+def mode_parting(captured, streams, vocab):
+    """Scatter's and append's streams read from the serves' own logits
+    (``capture_decode_logits``), over the decode steps the streams share
+    (up to and with the step where they part). Held: each captured row's
+    argmax is the token its serve emitted, so these are the logits the
+    streams came from; the mode shift max|scatter - append| of a row stays
+    within ``MODE_SHIFT_REL`` of its largest |logit|; where the streams
+    part, the scatter logits of the two tokens emitted there are no
+    further apart than that step's shift, so the modes' rounding alone
+    can swap them. Reported per request: the scatter top-2 margins and
+    the shifts, how many steps had a margin at or under the shift, the
+    worst shift over its limit, and at the parting step both serves'
+    logits of the two tokens."""
+    rows = {}
+    for key, steps in captured.items():
+        rids = sorted({rid for ent, _ in steps for rid, _, _ in ent})
+        rows[key] = {(rids.index(rid), j): h[slot, 0]
+                     for ent, h in steps for rid, slot, j in ent}
+    sc, ap = rows["masked_full x scatter"], rows["causal_skip x append"]
+    tokens = {key: {} for key in rows}
+    for key, r in rows.items():
+        for (i, j), h in r.items():
+            tokens[key][(i, j)] = int(h.argmax())
+            if tokens[key][(i, j)] != streams[key][i][j]:
+                raise AssertionError(f"{key}: request {i}'s captured logits "
+                                     f"at token {j} are not its serve's")
+    records = []
+    for i in sorted({i for i, _ in sc}):
+        steps = sorted(j for ii, j in sc if ii == i)
+        parted, margins, shifts, worst = None, [], [], 0.0
+        for j in steps:
+            if (i, j) not in ap:
+                break
+            ls, la = sc[(i, j)][:vocab].float(), ap[(i, j)][:vocab].float()
+            top2 = ls.topk(2).values
+            margins.append(float(top2[0] - top2[1]))
+            shifts.append(float((ls - la).abs().max()))
+            worst = max(worst, shifts[-1] / (MODE_SHIFT_REL
+                                             * float(ls.abs().max())))
+            if not worst <= 1:
+                raise AssertionError(f"request {i} token {j}: the modes move "
+                                     f"the logits {worst:.3f} of their limit")
+            ts, ta = tokens["masked_full x scatter"][(i, j)], \
+                tokens["causal_skip x append"][(i, j)]
+            if ts != ta:
+                if float(ls[ts] - ls[ta]) > shifts[-1]:
+                    raise AssertionError(
+                        f"request {i} parts at token {j} where scatter's "
+                        f"logits {float(ls[ts])}, {float(ls[ta])} are "
+                        f"further apart than the shift {shifts[-1]}")
+                parted = {"token": j, "scatter_token": ts,
+                          "append_token": ta,
+                          "scatter_logits": [float(ls[ts]), float(ls[ta])],
+                          "append_logits": [float(la[ts]), float(la[ta])],
+                          "shift": shifts[-1]}
+                break
+        near = sum(m <= d for m, d in zip(margins, shifts))
+        records.append({
+            "request": i, "steps_compared": len(margins),
+            "steps_margin_within_shift": near,
+            "min_margin": min(margins), "max_shift": max(shifts),
+            "median_shift": sorted(shifts)[len(shifts) // 2],
+            "worst_shift_over_limit": worst, "parted": parted})
+    return records
+
+
+def append_skip_serve(torch, cfg, params, prompts, label):
+    """The same requests through ``Engine(paged=False)`` under scatter and
+    under append x causal_skip (the modes put back after), each with its
+    launches counted from 0 just before its serve and read just after, four
+    of its decode steps profiled, and CUDA events around the whole serve.
+    Returns ({mode: record}, where a record holds its streams; {mode: its
+    serve's decode logits, ``capture_decode_logits``})."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.endpoint import ServingEndpoint
+    from repro_torch.serving.engine import Engine
+    runs, captured = {}, {}
+    try:
+        for attn_mode, dec_mode in (("masked_full", "scatter"),
+                                    ("causal_skip", "append")):
+            ops.set_attention_mode(attn_mode)
+            ops.set_decode_mode(dec_mode)
+            eng = Engine(cfg, [params], paged=False, device="cuda",
+                         **SERVE_KW)
+            logits = capture_decode_logits(eng)
+            ep = ServingEndpoint(eng)
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            streams, steps, prof = drive(torch, ep, prompts,
+                                         profile_at=PROFILE_AT)
+            ev1.record()
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            bodies = ops.body_counts()
+            del ep, eng
+            if counts["flash_attention"] <= 0:
+                raise AssertionError(f"{label} {dec_mode}: flash never "
+                                     f"launched")
+            if (counts["decode_attention"] > 0) != (dec_mode == "scatter"):
+                raise AssertionError(f"{label} {dec_mode}: decode kernel "
+                                     f"launched {counts['decode_attention']}"
+                                     f" times")
+            if any(counts[k] for k in ("ragged_paged_attention",
+                                       "ragged_paged_attention_q8",
+                                       "paged_decode_attention", "wkv6")):
+                raise AssertionError(f"{label} {dec_mode}: {counts}")
+            if cfg.dtype == "bfloat16":
+                check_bodies(counts, f"{label} {dec_mode}")
+            if not all(len(t) == MAX_NEW and all(0 <= x < cfg.vocab
+                                                 for x in t)
+                       for t in streams):
+                raise AssertionError(f"{label} {dec_mode}: bad streams")
+            key = f"{attn_mode} x {dec_mode}"
+            runs[key] = {"streams": streams, "launches": counts,
+                         "bodies": bodies, "serve": step_stats(steps),
+                         "serve_device_clock_ms": ev0.elapsed_time(ev1),
+                         "profile": prof}
+            captured[key] = logits
+            log(f"  {label} {key}: flash launches {counts['flash_attention']}"
+                f", decode kernel {counts['decode_attention']}; serve "
+                f"{runs[key]['serve_device_clock_ms']:.1f} ms between CUDA "
+                f"events; {prof['steps']} decode steps profiled: device "
+                f"{prof['device_ms_per_step']:.2f} ms a step (profiled wall "
+                f"{prof['profiled_wall_ms_per_step']:.2f} ms); decode step "
+                f"p50 {runs[key]['serve']['decode_step_ms_p50']:.2f} ms")
+    finally:
+        ops.set_attention_mode("masked_full")
+        ops.set_decode_mode("scatter")
+    return runs, captured
+
+
+def append_skip_phase(torch, smi, prompts):
+    """The ``APPEND_SKIP`` phase: granite-3-8b at full width and depth (the
+    ``COLDSTART`` phase's) on the slot-contiguous layout, random weights
+    from a seeded generator. First one append decode step against the
+    contiguous decode kernel (``append_step_check``). Then the four
+    requests through ``Engine(paged=False)`` under scatter (masked_full)
+    and under append x causal_skip, in the config's bf16 and with the same
+    weights in float32 (TF32 off: the kernels' CUDA-core bodies, held
+    first at the serves' shapes by ``f32_kernel_check``). Held: flash
+    launched under both modes (the kernel under causal_skip, as the
+    reference's Pallas branch), the decode kernel under scatter only, the
+    paged kernels never, bf16 launches on the tensor cores; float32
+    streams equal token for token; both dtypes' streams read from the
+    serves' own logits (``mode_parting``): the modes' logit shift within
+    2^-5 of a row's largest |logit|, and bf16 streams part only where the
+    two tokens' scatter logits lie within that step's shift (the modes
+    round to bf16 at other points, so such a pair can go either way;
+    the agreement is reported). Returns (the append x causal_skip serves'
+    launches, bf16 and float32 summed; the record)."""
+    import dataclasses
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.model import Model
+    t_phase = time.perf_counter()
+    cfg = get_config("granite-3-8b")
+    assert cfg.n_layers == 40 and cfg.dtype == "bfloat16", cfg
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    step = append_step_check(torch, flush)
+    del flush
+    f32_errs = f32_kernel_check(torch, prompts)
+    model = Model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    serves, parting = {}, {}
+    for label in ("bf16", "f32"):
+        if label == "f32":
+            f32 = tree_map(lambda a: a.float(), params)
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+            params, cfg = f32, dataclasses.replace(cfg, dtype="float32")
+            del f32
+        serves[label], captured = append_skip_serve(torch, cfg, params,
+                                                    prompts, label)
+        parting[label] = mode_parting(
+            captured, {k: r["streams"] for k, r in serves[label].items()},
+            cfg.vocab)
+        del captured
+        for rec in parting[label]:
+            log(f"  {label} scatter vs append x causal_skip, the serves' "
+                f"logits: {rec}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    sc, ap = (serves["bf16"][k]["streams"] for k in (
+        "masked_full x scatter", "causal_skip x append"))
+    agree = sum(x == y for s, r in zip(sc, ap)
+                for x, y in zip(s, r)) / sum(len(s) for s in sc)
+    log(f"  bf16 append x causal_skip streams agree with scatter's on "
+        f"{agree:.3f} of tokens (reported)")
+    sc32, ap32 = (serves["f32"][k]["streams"] for k in (
+        "masked_full x scatter", "causal_skip x append"))
+    if sc32 != ap32:
+        raise AssertionError(f"APPEND_SKIP float32: append x causal_skip "
+                             f"streams differ from scatter's:\n{sc32}\n"
+                             f"{ap32}")
+    log(f"  f32 streams: append x causal_skip == scatter, token for token "
+        f"(first request: {sc32[0][:8]} ...)")
+    launches = {}
+    for runs in serves.values():
+        for k, n in runs["causal_skip x append"]["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    rec = {"device": smi, "model": "granite-3-8b", "layers": cfg.n_layers,
+           "step_check": step, "f32_kernel_errors": f32_errs,
+           "serves": serves, "bf16_token_agreement": agree,
+           "parting": parting, "f32_streams_equal": True,
+           "launches_append_skip": launches,
+           "limits": {"pair_rel": APPEND_PAIR_REL,
+                      "pair_atol": APPEND_PAIR_ATOL, "row_rel": ROW_REL,
+                      "row_atol": ROW_ATOL, "stats_rel": STATS_REL,
+                      "f32": F32_TOL, "mode_shift_rel": MODE_SHIFT_REL},
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"  APPEND_SKIP phase: {rec['phase_s']:.1f} s")
+    log("APPEND_SKIP " + json.dumps(rec))
+    return launches, rec
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -4195,6 +4610,9 @@ def main():
                          "line)")
     ap.add_argument("--dist", action="store_true",
                     help="build, then only the distributed-prefill phase "
+                         "(no result line)")
+    ap.add_argument("--append-skip", action="store_true",
+                    help="build, then only the append x causal_skip phase "
                          "(no result line)")
     ap.add_argument("--dist-rank", nargs=2, metavar=("RANK", "PORT"),
                     help=argparse.SUPPRESS)  # one rank of dist_two_ranks
@@ -4279,9 +4697,38 @@ def main():
         log(DIST_TITLE)
         dist_phase(torch, smi)
         return
+    if args.append_skip:
+        from repro_torch.configs import get_config
+        log(APPEND_SKIP_TITLE)
+        append_skip_phase(torch, smi,
+                          main_prompts(get_config("granite-3-8b").vocab))
+        return
+
+    phase_times = {}
+
+    def phase(name, fn, *a):
+        """``fn(*a)`` timed: CUDA events around it (the device clock from
+        its first enqueue to its last, idle gaps included) and the wall
+        clock; logged and kept for the ``PHASES`` line."""
+        import gc
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev0.record()
+        out = fn(*a)
+        ev1.record()
+        torch.cuda.synchronize()
+        phase_times[name] = {"device_clock_ms": ev0.elapsed_time(ev1),
+                             "wall_s": time.perf_counter() - t0}
+        log(f"  phase {name}: {phase_times[name]['device_clock_ms']:.1f} ms "
+            f"between CUDA events, {phase_times[name]['wall_s']:.1f} s wall")
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
 
     log("== kernels vs plain versions")
-    rows = kernel_phase(torch, args.quick)
+    rows = phase("kernels", kernel_phase, torch, args.quick)
 
     launches = {k: None for k in rows}
     fleet_launches = {k: None for k in rows}
@@ -4289,59 +4736,48 @@ def main():
     encdec_vlm_launches = {k: None for k in rows}
     train_launches = {k: None for k in rows}
     dist_launches = {k: None for k in rows}
+    append_skip_launches = {k: None for k in rows}
     g1, encdec_vlm, train_kernel_row, dist_rows = {}, {}, None, None
+    append_step = None
     if not args.quick:
-        import gc
         from repro_torch.configs import get_config
         prompts = main_prompts(get_config("granite-3-8b").vocab)
         log("== serve granite-3-8b at full width (paged layout)")
-        launches.update(serve_phase(torch))
-        gc.collect()
-        torch.cuda.empty_cache()
+        launches.update(phase("SERVE", serve_phase, torch))
         log("== cold start through the ServerlessFrontend at full width "
             "and depth (slot-contiguous layout)")
-        launches.update(coldstart_phase(torch, prompts))
-        gc.collect()
-        torch.cuda.empty_cache()
+        launches.update(phase("COLDSTART", coldstart_phase, torch, prompts))
         log("== rwkv6-1.6b cold start through the ServerlessFrontend at full "
             "width and depth (the wkv6 kernel's path)")
-        launches.update(rwkv_phase(torch))
-        gc.collect()
-        torch.cuda.empty_cache()
+        launches.update(phase("RWKV", rwkv_phase, torch))
         log("== disk tier: cold deploy from an on-disk store (full width, "
             "4 layers)")
-        disk_tier_phase(torch, prompts)
-        gc.collect()
-        torch.cuda.empty_cache()
+        phase("DISK", disk_tier_phase, torch, prompts)
         log("== KV tiers, routing and the sanitizer (granite-3-8b, full "
             "width and depth, paged)")
-        tier_phase(torch)
-        gc.collect()
-        torch.cuda.empty_cache()
+        phase("TIER", tier_phase, torch)
         log("== the fleet: granite-3-8b and rwkv6-1.6b at full width and "
             "depth behind one FleetFrontend")
         fleet_launches = {k: 0 for k in rows}
-        fleet_launches.update(fleet_phase(torch))
-        gc.collect()
-        torch.cuda.empty_cache()
+        fleet_launches.update(phase("FLEET", fleet_phase, torch))
         log(FAMILIES_TITLE)
-        fam, g1 = families_phase(torch)
+        fam, g1 = phase("FAMILIES", families_phase, torch)
         families_launches = {k: fam.get(k, 0) for k in rows}
-        gc.collect()
-        torch.cuda.empty_cache()
         log(ENCDEC_VLM_TITLE)
-        ev, encdec_vlm = encdec_vlm_phase(torch)
+        ev, encdec_vlm = phase("ENCDEC_VLM", encdec_vlm_phase, torch)
         encdec_vlm_launches = {k: ev.get(k, 0) for k in rows}
-        gc.collect()
-        torch.cuda.empty_cache()
         log(TRAIN_TITLE)
-        tr, train_kernel_row = train_phase(torch, smi)
+        tr, train_kernel_row = phase("TRAIN", train_phase, torch, smi)
         train_launches = {k: tr.get(k, 0) for k in rows}
-        gc.collect()
-        torch.cuda.empty_cache()
         log(DIST_TITLE)
-        di, dist_rows = dist_phase(torch, smi)
+        di, dist_rows = phase("DIST", dist_phase, torch, smi)
         dist_launches = {k: di.get(k, 0) for k in rows}
+        log(APPEND_SKIP_TITLE)
+        ap, append_rec = phase("APPEND_SKIP", append_skip_phase, torch, smi,
+                               prompts)
+        append_skip_launches = {k: ap.get(k, 0) for k in rows}
+        append_step = append_rec["step_check"]
+    log("PHASES " + json.dumps(phase_times))
 
     kernels = []
     for name, source, replaces in KERNELS:
@@ -4353,6 +4789,7 @@ def main():
                         "launches_encdec_vlm": encdec_vlm_launches[name],
                         "launches_train": train_launches[name],
                         "launches_dist": dist_launches[name],
+                        "launches_append_skip": append_skip_launches[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
@@ -4370,7 +4807,10 @@ def main():
                         "train": (train_kernel_row if name == "flash_attention"
                                   else None),
                         "dist": (dist_rows if name == "flash_attention"
-                                 else None)})
+                                 else None),
+                        "append_step": (append_step
+                                        if name == "decode_attention"
+                                        else None)})
     # every pl.pallas_call of the repo has its kernel above
     print(json.dumps({"kernels": kernels, "not_ported": []}))
     print(json.dumps({"ok": True, "device": {

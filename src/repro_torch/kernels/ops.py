@@ -23,6 +23,28 @@ kernels serve only: on the card they raise on an input that requires grad,
 so no gradient is ever lost in a launch. On the CPU, autograd flows
 through the plain versions.
 
+Modes, as the reference's (environment knobs read at import, or the
+setters):
+
+* ``REPRO_ATTN_MODE`` = ``masked_full`` | ``causal_skip``
+  (``set_attention_mode``). On a CPU tensor, ``flash_attention`` over more
+  than 2^20 (query, key) pairs takes the blocked plain version: the skip
+  variant for a causal call under ``causal_skip``,
+  ``ref.flash_attention_blocked`` otherwise. On a CUDA tensor the kernel
+  launches in both modes (the reference's Pallas branch ignores the mode
+  too). A ``meta`` tensor takes ``ref.mha_reference`` in both: the blocked
+  walks give the same shapes, and their Python loops would cost a dry run
+  minutes a 32k cell.
+* ``REPRO_DECODE_MODE`` = ``scatter`` | ``append`` (``set_decode_mode``).
+  ``append`` makes a slot-contiguous decode step attend the old cache
+  with ``ref.decode_attention_with_stats`` and merge the new token in
+  closed form, its K/V written once after the layers
+  (``models/attention.py``, ``models/transformer.py::run_blocks``); paged
+  caches ignore it. That attention is plain PyTorch on the card too, as
+  it is plain ``jnp`` in the reference: no kernel replaces it. The
+  reference's third value, ``paged``, picks its engines' layout; the
+  port's engines take that as ``Engine(paged=...)``, so here it raises.
+
 Sanitize mode (``REPRO_SANITIZE=1``, read at import, or
 ``set_sanitize_mode``) runs ``analysis/kernelcheck.py``'s contract checks
 before every paged decode and ragged launch, on the CPU and on the card
@@ -51,6 +73,46 @@ _BODY_COUNTS = (_ra.BODY_LAUNCHES, _da.BODY_LAUNCHES,
 
 _SANITIZE = os.environ.get("REPRO_SANITIZE", "0").lower() \
     not in ("", "0", "off", "false")
+
+ATTN_MODES = ("masked_full", "causal_skip")
+DECODE_MODES = ("scatter", "append")
+# (query, key) pairs past which the CPU's flash takes the blocked version
+BLOCKED_PAIRS = 1 << 20
+
+
+def _mode(name: str, value: str, allowed) -> str:
+    if value not in allowed:
+        hint = (": the layout is Engine(paged=...) here"
+                if value == "paged" else "")
+        raise ValueError(f"{name}={value!r}: want {'|'.join(allowed)}"
+                         f"{hint}")
+    return value
+
+
+_ATTN_MODE = _mode("REPRO_ATTN_MODE",
+                   os.environ.get("REPRO_ATTN_MODE", "masked_full"),
+                   ATTN_MODES)
+_DECODE_MODE = _mode("REPRO_DECODE_MODE",
+                     os.environ.get("REPRO_DECODE_MODE", "scatter"),
+                     DECODE_MODES)
+
+
+def set_attention_mode(mode: str):
+    global _ATTN_MODE
+    _ATTN_MODE = _mode("attention mode", mode, ATTN_MODES)
+
+
+def attention_mode() -> str:
+    return _ATTN_MODE
+
+
+def set_decode_mode(mode: str):
+    global _DECODE_MODE
+    _DECODE_MODE = _mode("decode mode", mode, DECODE_MODES)
+
+
+def decode_mode() -> str:
+    return _DECODE_MODE
 
 
 def set_sanitize_mode(on: bool):
@@ -139,7 +201,10 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
     (B,Sk,Hkv,hd). ``kv_len`` (B,) is the plain version's only: the
     kernel, like the Pallas one, takes none, and on the card it raises.
     On the card, a call with an input that requires grad goes through
-    ``_FlashFn``; any other takes the kernel's launch alone."""
+    ``_FlashFn``; any other takes the kernel's launch alone, in either
+    attention mode. On the CPU, past ``BLOCKED_PAIRS`` (query, key) pairs
+    the plain version is the blocked one (the attention mode picks which);
+    at or under it, and on ``meta``, it is ``ref.mha_reference``."""
     if _on_card(q):
         if kv_len is not None:
             raise ValueError("flash_attention: the kernel takes no kv_len "
@@ -147,8 +212,14 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
         if _wants_grad(q, k, v):
             return _FlashFn.apply(q, k, v, causal, q_offset)
         return _fa.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
-    return _ref.mha_reference(q, k, v, causal=causal, q_offset=q_offset,
-                              kv_len=kv_len)
+    if q.device.type == "meta" or q.shape[1] * k.shape[1] <= BLOCKED_PAIRS:
+        return _ref.mha_reference(q, k, v, causal=causal, q_offset=q_offset,
+                                  kv_len=kv_len)
+    if causal and _ATTN_MODE == "causal_skip":
+        return _ref.flash_attention_blocked_skip(q, k, v, q_offset=q_offset,
+                                                 kv_len=kv_len)
+    return _ref.flash_attention_blocked(q, k, v, causal=causal,
+                                        q_offset=q_offset, kv_len=kv_len)
 
 
 def decode_attention(q, k_cache, v_cache, kv_len):

@@ -14,6 +14,13 @@ q's dtype. A masked key takes no part in the sum (its probability is
 zeroed before the product), and a row with no valid key at all (a pad
 token, ``kv_len == 0``) comes back exactly 0: ``acc / max(l, 1e-30)``.
 
+Beside the kernels' plain versions stand three of the reference's oracles
+that no kernel replaces: ``flash_attention_blocked`` and
+``flash_attention_blocked_skip``, the plain path of ``ops.flash_attention``
+for long sequences on the CPU (the online softmax over key blocks), and
+``decode_attention_with_stats``, the ``append`` decode mode's attention over
+the old cache, which runs as plain PyTorch on the CPU and on the card alike.
+
 The last section is RWKV6's recurrence (``wkv6``): r, k, v, w (B, T, H, hd),
 u (H, hd), a float32 state (B, H, hd, hd) per sequence.
 """
@@ -82,6 +89,121 @@ def decode_attention_reference(q, k_cache, v_cache, kv_len):
     slot-contiguous caches (B,S,Hkv,hd), over each row's first ``kv_len``
     positions; a row with kv_len 0 is exactly 0."""
     return mha_reference(q, k_cache, v_cache, causal=False, kv_len=kv_len)
+
+
+def decode_attention_with_stats(q, k_cache, v_cache, kv_len, *, scale=None):
+    """Decode attention that also returns the softmax stats, so a new
+    token's contribution can be merged in without writing it to the cache
+    first (the ``append`` decode mode, ``models/attention.py``).
+
+    q (B,1,Hq,hd); caches (B,S,Hkv,hd); kv_len (B,). Returns (out
+    (B,1,Hq,hd), m (B,Hq), l (B,Hq)), all float32: ``out`` is the
+    *unnormalised* sum of p * v over the row's first ``kv_len`` positions,
+    m the row's largest score and l the sum of p = exp(s - m). A row with
+    kv_len 0 gives out 0, m = ``NEG_INF`` and l 0, as the reference's."""
+    b, _, hq, hd = q.shape
+    sk, hkv = k_cache.shape[1], k_cache.shape[2]
+    g = hq // hkv
+    scale = softmax_scale(hd) if scale is None else scale
+    qs = q.float().reshape(b, hkv, g, hd)[:, :, :, None]   # (B,Hkv,G,1,hd)
+    kf = k_cache.float().permute(0, 2, 1, 3)[:, :, None]   # (B,Hkv,1,S,hd)
+    vf = v_cache.float().permute(0, 2, 1, 3)[:, :, None]
+    s = (qs @ kf.transpose(-1, -2)) * scale                # (B,Hkv,G,1,S)
+    valid = (torch.arange(sk, device=q.device)[None, :]
+             < kv_len.long()[:, None])[:, None, None, None]
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1)                                     # (B,Hkv,G,1)
+    p = torch.where(valid, torch.exp(s - m[..., None]), torch.zeros_like(s))
+    out = (p @ vf).reshape(b, hq, 1, hd).transpose(1, 2)   # (B,1,Hq,hd)
+    return out, m.reshape(b, hq), p.sum(dim=-1).reshape(b, hq)
+
+
+# ---------------------------------------------------------------------------
+# Blocked attention: the online-softmax recurrence over key blocks, the
+# plain path of ``ops.flash_attention`` on the CPU for long sequences.
+# ---------------------------------------------------------------------------
+
+
+def _attend_blocks(qs, qpos, kf, vf, kv_limit, kb, n_kv, causal, scale):
+    """One query block against key blocks [0, n_kv) of ``kb`` positions.
+
+    qs (B,Hkv,G,nq,hd) f32; qpos (nq,) absolute query positions; kf, vf
+    (B,Hkv,Sk,hd) f32; kv_limit (B,) keys at or past it are masked.
+    Returns (B,Hkv,G,nq,hd): acc / max(l, 1e-30), float32. A masked key's
+    p is 0, so a query with no valid key at all comes back 0."""
+    b, hkv, g, nq, hd = qs.shape
+    m = qs.new_full((b, hkv, g, nq), NEG_INF)
+    l = qs.new_zeros((b, hkv, g, nq))
+    acc = qs.new_zeros((b, hkv, g, nq, hd))
+    for ki in range(n_kv):
+        k0 = ki * kb
+        kblk = kf[:, :, None, k0:k0 + kb]                  # (B,Hkv,1,kb,hd)
+        vblk = vf[:, :, None, k0:k0 + kb]
+        kpos = torch.arange(k0, k0 + kblk.shape[3], device=qs.device)
+        s = (qs @ kblk.transpose(-1, -2)) * scale          # (B,Hkv,G,nq,kb)
+        msk = (kpos[None, :] < kv_limit[:, None])[:, None, None, None]
+        if causal:
+            msk = msk & (kpos[None, :] <= qpos[:, None])
+        s = torch.where(msk, s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.where(msk, torch.exp(s - m_new[..., None]),
+                        torch.zeros_like(s))
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + p @ vblk
+        m = m_new
+    return acc / torch.clamp_min(l, 1e-30)[..., None]
+
+
+def _blocked(q, k, v, causal, q_offset, kv_len, q_block, kv_block, scale,
+             skip):
+    b, sq, hq, hd = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = softmax_scale(hd) if scale is None else scale
+    qb, kb = min(q_block, sq), min(kv_block, sk)
+    n_kv = -(-sk // kb)
+    kf = k.float().permute(0, 2, 1, 3)                     # (B,Hkv,Sk,hd)
+    vf = v.float().permute(0, 2, 1, 3)
+    qs = q.float().reshape(b, sq, hkv, g, hd).permute(0, 2, 3, 1, 4)
+    kv_limit = (torch.full((b,), sk, device=q.device) if kv_len is None
+                else kv_len.long())
+    outs = []
+    for qi in range(-(-sq // qb)):
+        q0 = qi * qb
+        qpos = torch.arange(q0, min(q0 + qb, sq), device=q.device) + q_offset
+        # the skip leaves out the key blocks wholly above this query block's
+        # diagonal (its padded end, as the reference counts it)
+        nk = min(-(-((qi + 1) * qb + q_offset) // kb), n_kv) if skip \
+            else n_kv
+        outs.append(_attend_blocks(qs[:, :, :, q0:q0 + qb], qpos, kf, vf,
+                                   kv_limit, kb, nk, causal, scale))
+    o = torch.cat(outs, dim=3)                             # (B,Hkv,G,Sq,hd)
+    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, hd).to(q.dtype)
+
+
+def flash_attention_blocked(q, k, v, *, causal: bool = True,
+                            q_offset: int = 0, kv_len=None,
+                            q_block: int = 512, kv_block: int = 1024,
+                            scale=None):
+    """Blocked attention: each block of ``q_block`` queries walks every
+    block of ``kv_block`` keys with the online softmax, in float32, so no
+    (Sq, Sk) score matrix is ever held. The same mask as
+    :func:`mha_reference` (causal from ``q_offset``, and ``kv_len`` (B,));
+    the output in q's dtype. A query with no valid key comes back 0."""
+    return _blocked(q, k, v, causal, q_offset, kv_len, q_block, kv_block,
+                    scale, skip=False)
+
+
+def flash_attention_blocked_skip(q, k, v, *, q_offset: int = 0, kv_len=None,
+                                 q_block: int = 2048, kv_block: int = 2048,
+                                 scale=None):
+    """Causal :func:`flash_attention_blocked` that skips the key blocks
+    wholly above the diagonal: query block i walks key blocks up to
+    ceil(((i + 1) * q_block + q_offset) / kv_block) only, about half the
+    score work of the masked walk at ``q_offset`` 0."""
+    return _blocked(q, k, v, True, q_offset, kv_len, q_block, kv_block,
+                    scale, skip=True)
 
 
 # ---------------------------------------------------------------------------

@@ -10,7 +10,10 @@ devices, the port builds the cell (``launch/specs.py``) on a mesh of a
 ``fake`` process group of that size (``launch/mesh.py::fake_world``, torn
 down after the sweep) and runs its function on ``meta`` tensors: the
 outputs must come back with the shapes and dtypes their shardings lay out,
-and nothing is computed. ``--policy manual`` and ``--policy ppipe`` run one
+and nothing is computed. ``--policy`` takes the reference's names: one
+containing ``skip`` sets the ``causal_skip`` attention mode (the roofline
+then counts half the causal score work), one containing ``kvapp`` the
+``append`` decode mode. ``--policy manual`` and ``--policy ppipe`` run one
 rank's function (``distributed/manual_tp.py``, ``distributed/pp_spmd.py``)
 on that rank's ``meta`` shards; the ppipe stage runs at full width, as the
 reference leaves tensor parallelism inside a stage to its compiler.
@@ -38,6 +41,7 @@ import torch
 
 from repro_torch.configs import SHAPES, applicable_shapes, get_config, \
     list_configs
+from repro_torch.kernels import ops
 from repro_torch.launch.mesh import ensure_world, make_pp_mesh, \
     make_production_mesh
 from repro_torch.launch.specs import device_bytes, local_structs, make_cell
@@ -46,9 +50,6 @@ from repro_torch.roofline import analysis, analytic
 
 OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                        "experiments", "dryrun_torch")
-
-NOT_PORTED = ("skip", "kvapp")   # ROADMAP item 5b.3
-
 
 def _global_outputs(cfg, shape, policy):
     """The global outputs of a pipelined (logits) or manual-TP (logits and
@@ -92,14 +93,27 @@ def _leaves(tree):
 def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
              policy: str = "baseline", verbose: bool = True) -> dict:
     """One cell's record, in the sweep's process group (``fake_world``) or
-    in one of its own for the call if none is open."""
-    if any(p in policy for p in NOT_PORTED):
-        raise NotImplementedError(
-            f"policy {policy!r}: the causal_skip and append modes are not "
-            f"ported (ROADMAP item 5b.3)")
+    in one of its own for the call if none is open. A policy naming
+    ``skip`` runs under the ``causal_skip`` attention mode and one naming
+    ``kvapp`` under the ``append`` decode mode, as the reference's; both
+    modes are put back after the cell. On ``meta`` the decode mode moves
+    the trace (the append branch runs) and the attention mode does not
+    (flash takes ``mha_reference`` in both, and the roofline reads the
+    skip from the policy): it is set so that the modes a cell runs under
+    are the reference's, and code that reads ``ops.attention_mode()``
+    inside a cell sees the policy's."""
     chips = 512 if multi_pod else 256
-    with ensure_world(chips):
-        return _run_cell(arch, shape_name, multi_pod, policy, verbose, chips)
+    saved = ops.attention_mode(), ops.decode_mode()
+    ops.set_attention_mode("causal_skip" if "skip" in policy
+                           else "masked_full")
+    ops.set_decode_mode("append" if "kvapp" in policy else "scatter")
+    try:
+        with ensure_world(chips):
+            return _run_cell(arch, shape_name, multi_pod, policy, verbose,
+                             chips)
+    finally:
+        ops.set_attention_mode(saved[0])
+        ops.set_decode_mode(saved[1])
 
 
 def _run_cell(arch, shape_name, multi_pod, policy, verbose, chips):

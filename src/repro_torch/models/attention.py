@@ -21,8 +21,16 @@ decoder chunk over the encoder memory's K/V, precomputed once per request
 
 Where JAX rebuilt the caches functionally, the port writes into them in
 place (``paged_kv_write``, ``ragged_kv_write``, the contiguous writes).
-Not ported: the reference's ``append`` decode mode (an environment knob
-with no kernel of its own).
+
+The ``append`` decode mode (``ops.decode_mode()``, the reference's
+``REPRO_DECODE_MODE=append``) changes the slot-contiguous decode step:
+the new token attends rows [0, pos) of its strip through
+``ref.decode_attention_with_stats`` and its own K/V are merged in closed
+form (``append_attention``); the strips are written once after the
+layers (``transformer.run_blocks``). The reference does so to keep the
+cache out of its scan's loop carries; the port, writing in place, gains no
+memory from it, and the mode's output differs from ``scatter``'s only in
+rounding.
 """
 
 from __future__ import annotations
@@ -33,7 +41,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import quantize_kv
+from repro_torch.kernels.ref import (decode_attention_with_stats,
+                                     quantize_kv, softmax_scale)
 from repro_torch.models.common import ParamDef, apply_rope, as_dtype
 
 # Per-row quantization parameters stored alongside int8 page pools, in the
@@ -142,10 +151,32 @@ def paged_kv_gather(pages, block_tables, n_tokens: int):
     return flat[idx]
 
 
+def append_attention(q, k, v, k_cache, v_cache, pos):
+    """One decode step of the ``append`` mode. q (B,1,Hq,hd) and the new
+    token's k, v (B,1,Hkv,hd) against the strips (B,S,Hkv,hd), whose rows
+    [0, pos) (pos (B,)) hold the history: the history's (out, m, l) from
+    ``decode_attention_with_stats``, then the new token's score merged in
+    closed form, in float32. Returns (B,1,Hq,hd) in q's dtype; the strips
+    are neither read at nor written to row ``pos``."""
+    out_c, m_c, l_c = decode_attention_with_stats(q, k_cache, v_cache, pos)
+    g = q.shape[2] // k.shape[2]
+    k_exp = k.repeat_interleave(g, dim=2).float()
+    v_exp = v.repeat_interleave(g, dim=2).float()
+    s_n = (q.float() * k_exp).sum(dim=(1, 3)) \
+        * softmax_scale(q.shape[-1])                       # (B,Hq)
+    m_new = torch.maximum(m_c, s_n)
+    alpha = torch.exp(m_c - m_new)
+    beta = torch.exp(s_n - m_new)
+    num = out_c * alpha[:, None, :, None] + beta[:, None, :, None] * v_exp
+    den = l_c * alpha + beta
+    return (num / den[:, None, :, None]).to(q.dtype)
+
+
 def self_attention(cfg: ModelConfig, p: dict, x, *, positions,
                    causal: bool = True,
                    kv_cache: Optional[Tuple] = None,
                    decode: bool = False,
+                   allow_append: bool = True,
                    block_tables=None,
                    hist_len: int = 0,
                    ragged=None,
@@ -160,7 +191,11 @@ def self_attention(cfg: ModelConfig, p: dict, x, *, positions,
       no ``kv_cache`` it only attends.
     * decode (``decode=True``): S == 1; row b's new K/V are written at
       ``positions[b, 0]`` and it attends rows [0, pos + 1) of its strip
-      (``ops.decode_attention``).
+      (``ops.decode_attention``). Under the ``append`` decode mode, when
+      ``allow_append``, it attends rows [0, pos) and merges its own K/V in
+      (``append_attention``), writes nothing, and returns the marker
+      ``("append", k, v)`` as its new cache: the caller writes k, v at
+      ``positions`` (``transformer.run_blocks``, once after the layers).
 
     ``ragged`` = (tables (R,nb), row (T,), valid (T,)) is the fused
     ragged-batch path: x is (1, T, d) — a whole mixed step (prefill chunks
@@ -185,7 +220,7 @@ def self_attention(cfg: ModelConfig, p: dict, x, *, positions,
     (:func:`paged_kv_gather`) with ``q_offset=hist_len``.
 
     Returns (out (B,S,d), new_cache): the same cache tensors, written in
-    place (None without a cache).
+    place (None without a cache), or the ``append`` marker above.
     """
     paged = ragged is not None or block_tables is not None
     if paged and kv_cache is None:
@@ -219,6 +254,11 @@ def self_attention(cfg: ModelConfig, p: dict, x, *, positions,
             new_cache = (ck, cv)
         out = ops.flash_attention(q.contiguous(), k.contiguous(),
                                   v.contiguous(), causal=causal, q_offset=0)
+    elif not paged and ops.decode_mode() == "append" and allow_append:
+        assert kv_cache is not None and seq == 1
+        ck, cv = kv_cache
+        out = append_attention(q, k, v, ck, cv, positions[:, 0])
+        new_cache = ("append", k, v)
     elif not paged:
         assert kv_cache is not None and seq == 1
         ck, cv = kv_cache

@@ -132,7 +132,8 @@ def decoder(cfg: ModelConfig, params: dict, tokens, positions, *,
     def layer(p, mem_kv, kvc, x):
         xin = rmsnorm(x, p["self"]["norm"], cfg.norm_eps)
         y, _ = attn.self_attention(cfg, p["self"], xin, positions=positions,
-                                   causal=True, kv_cache=kvc, decode=decode)
+                                   causal=True, kv_cache=kvc, decode=decode,
+                                   allow_append=False)
         x = x + y
         xin = rmsnorm(x, p["cross_norm"], cfg.norm_eps)
         x = x + attn.cross_attention(cfg, p["cross"], xin, mem_kv=mem_kv)

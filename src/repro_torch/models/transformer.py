@@ -187,9 +187,10 @@ def head(cfg: ModelConfig, params: dict, x):
 
 def _period_step(cfg: ModelConfig, pslice: dict, cslice, x, positions,
                  decode: bool, block_tables=None, hist_len: int = 0,
-                 ragged=None):
+                 ragged=None, appends=None):
     """One period's slots. Returns (x, the period's MoE load-balancing
-    loss: 0.0 without a MoE slot)."""
+    loss: 0.0 without a MoE slot). Under the ``append`` decode mode each
+    attention slot's new (k, v) is added to ``appends[slot]``, unwritten."""
     aux = 0.0
     for i, (mix, mlp) in enumerate(_period_plan(cfg)):
         slot = f"slot{i:02d}"
@@ -210,13 +211,15 @@ def _period_step(cfg: ModelConfig, pslice: dict, cslice, x, positions,
                 kvc = (c["k"], c["v"]) if c is not None else None
             kvq = ({leaf: c[leaf] for leaf in attn.KV_QUANT_LEAVES}
                    if paged and "k_scale" in c else None)
-            y, _ = attn.self_attention(cfg, sp["mixer"], xin,
-                                       positions=positions, kv_cache=kvc,
-                                       decode=decode,
-                                       block_tables=(block_tables if paged
-                                                     else None),
-                                       hist_len=hist_len if paged else 0,
-                                       ragged=ragged, kv_quant=kvq)
+            y, nc = attn.self_attention(cfg, sp["mixer"], xin,
+                                        positions=positions, kv_cache=kvc,
+                                        decode=decode,
+                                        block_tables=(block_tables if paged
+                                                      else None),
+                                        hist_len=hist_len if paged else 0,
+                                        ragged=ragged, kv_quant=kvq)
+            if isinstance(nc, tuple) and nc[0] == "append":
+                appends.setdefault(slot, []).append(nc[1:])
             x = x + y
         xin = rmsnorm(x, sp["mlp"]["norm"], cfg.norm_eps)
         if mlp == "dense":
@@ -269,16 +272,21 @@ def run_blocks(cfg: ModelConfig, blocks: dict, x, positions, *,
     ``ragged`` = (tables, row, valid) routes attention through the fused
     ragged-batch kernel — x is (1, T, d), positions (1, T) with -1 pads.
     An rwkv or mamba slot's recurrence starts from its cached state and
-    leaves the new one there. ``remat`` (training, no cache): ``"full"``
-    recomputes each period in the backward, ``"dots"`` keeps its
-    projections' outputs and recomputes the rest. Returns (x, cache, the
-    MoE load-balancing loss summed over periods: 0.0 without MoE)."""
+    leaves the new one there. Under the ``append`` decode mode the
+    slot-contiguous decode step attends the strips as they were and writes
+    every period's new K/V into them once, after the last period (the
+    reference's post-pass after its scan). ``remat`` (training, no
+    cache): ``"full"`` recomputes each period in the backward, ``"dots"``
+    keeps its projections' outputs and recomputes the rest. Returns (x,
+    cache, the MoE load-balancing loss summed over periods: 0.0 without
+    MoE)."""
     if remat != "none" and cache is not None:
         raise ValueError("remat recomputes a training forward: it takes no "
                          "cache")
+    appends = {}
     step = remat_wrap(functools.partial(
         _period_step, cfg, decode=decode, block_tables=block_tables,
-        hist_len=hist_len, ragged=ragged), remat)
+        hist_len=hist_len, ragged=ragged, appends=appends), remat)
     periods = tree_map(lambda a: a.unbind(0), blocks)
     aux = 0.0
     for i in range(tree_leaves(blocks)[0].shape[0]):
@@ -287,6 +295,13 @@ def run_blocks(cfg: ModelConfig, blocks: dict, x, positions, *,
             else None
         x, a = step(pslice, cslice, x, positions)
         aux = aux + a
+    if appends:
+        rows = torch.arange(x.shape[0], device=x.device)
+        pos = positions[:, 0].long()
+        for slot, kvs in appends.items():
+            for leaf, new in zip(("k", "v"), zip(*kvs)):
+                c = cache[slot][leaf]                      # (P,B,S,Hkv,hd)
+                c[:, rows, pos] = torch.stack(new)[:, :, 0].to(c.dtype)
     return x, cache, aux
 
 

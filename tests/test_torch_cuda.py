@@ -41,6 +41,12 @@ inputs: float32 at 1e-5 and bf16 within one bf16 rounding of the largest
 the other four kernels refuse an input that requires grad. A smoke train
 step on the card equals the CPU's to 1e-4 of each gradient's largest
 |value| (float32, TF32 off), under each remat mode.
+
+The reference's modes: under ``causal_skip`` flash still launches its
+kernel on the card (no plain version runs); the ``append`` decode step
+(plain torch over the old rows, the new token merged in closed form) is
+held against the contiguous decode kernel, and a smoke engine under it
+against scatter and the CPU.
 """
 
 import numpy as np
@@ -664,6 +670,109 @@ def test_cuda_contiguous_engine_matches_cpu(cuda):
     assert counts["flash_attention"] > 0 and counts["decode_attention"] > 0
     assert counts["ragged_paged_attention"] == 0
     assert streams[0] == streams[1]
+
+
+@pytest.fixture
+def modes():
+    """The port's attention and decode modes, put back after the test."""
+    saved = ops.attention_mode(), ops.decode_mode()
+    yield
+    ops.set_attention_mode(saved[0])
+    ops.set_decode_mode(saved[1])
+
+
+def _refuse(*a, **kw):
+    raise AssertionError("a plain version ran on the card")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["masked_full", "causal_skip"])
+@pytest.mark.parametrize("sq", [300, 1040], ids=["short", "past-switch"])
+def test_cuda_flash_launches_under_causal_skip(cuda, modes, monkeypatch,
+                                               mode, sq):
+    """In either attention mode ``ops.flash_attention`` on CUDA tensors
+    launches the kernel (tensor-core body), past the CPU's 2^20 switch
+    too, and runs no plain version."""
+    q, k, v = [a.to(cuda, torch.bfloat16) for a in _qkv(1, sq, sq, 8, 2,
+                                                        64, seed=9)]
+    want = ref.mha_reference(q.float(), k.float(), v.float(), causal=True)
+    ops.set_attention_mode(mode)
+    for name in ("mha_reference", "flash_attention_blocked",
+                 "flash_attention_blocked_skip"):
+        monkeypatch.setattr(ref, name, _refuse)
+    ops.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, causal=True)
+    assert _bodies("flash_attention") == (1, 0)
+    assert ops.launch_counts()["flash_attention"] == 1
+    _check(got, want, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_cuda_append_attention_matches_decode_kernel(cuda, dtype):
+    """The append mode's step on the card (plain torch over the old rows,
+    the new token merged in closed form) against the float32 plain decode
+    over the strips with the new token at ``pos`` (``_check``'s limits),
+    and against the contiguous decode kernel there: float32 at 1e-5, bf16
+    each row within twice the row limit (each side within one of the
+    float32 sum). The stats' normalised output over the old rows likewise
+    against the kernel over them."""
+    from repro_torch.models.attention import append_attention
+    dt = DTYPES[dtype]
+    lens = [316, 273, 1, 0]
+    q, k, v, kl = _contig_decode(lens, 430, 8, 2, 128, seed=10)
+    q, k, v = q.to(cuda, dt), k.to(cuda, dt), v.to(cuda, dt)
+    pos = kl.to(cuda)
+    rows = torch.arange(len(lens), device=cuda)
+    k_new, v_new = k[rows, pos.long()][:, None], v[rows, pos.long()][:, None]
+    got = append_attention(q, k_new, v_new, k, v, pos)
+    _check(got, ref.decode_attention_reference(q.float(), k.float(),
+                                               v.float(), pos + 1), dt)
+    ops.reset_launch_counts()
+    kernel = decode_attention.decode_attention(q, k, v, pos + 1)
+    assert ops.launch_counts()["decode_attention"] == 1
+    out, m, l = ref.decode_attention_with_stats(q, k, v, pos)
+    live = pos > 0
+    old = decode_attention.decode_attention(q, k, v, pos)
+    for a, b in ((got, kernel), ((out / l[:, None, :, None])[live],
+                                 old[live])):
+        if dtype == "f32":
+            torch.testing.assert_close(a, b, **F32_TOL)
+        else:
+            d = (a.float() - b.float()).abs().amax(-1)
+            lim = 2 * (ROW_REL * b.float().abs().amax(-1) + ROW_ATOL)
+            assert bool((d <= lim).all()), float((d / lim).max())
+    assert bool((l[~live] == 0).all()) and bool(torch.isfinite(m).all())
+
+
+@pytest.mark.cuda
+def test_cuda_append_mode_engine_matches_scatter_and_cpu(cuda, modes):
+    """``Engine(paged=False)`` under the append mode on the card: the same
+    greedy tokens as under scatter on the card and as on the CPU (float32
+    smoke model); the decode kernel is not launched under append."""
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.models.model import Model
+    from repro_torch.serving.api import SamplingParams
+    from repro_torch.serving.engine import Engine
+    cfg = smoke_variant(get_config("granite-3-8b"))
+    params = Model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    prompts = [[1, 2, 3, 4, 5, 6, 7], [9, 8, 7, 6, 5], [3, 1, 4, 1, 5]]
+    streams, counts = {}, {}
+    for dev, mode in (("cpu", "append"), ("cuda", "scatter"),
+                      ("cuda", "append")):
+        ops.set_decode_mode(mode)
+        eng = Engine(cfg, [_tree_to(params, dev)], max_batch=2, max_seq=32,
+                     paged=False, device=dev)
+        reqs = [eng.submit(p, SamplingParams(max_new=5)) for p in prompts]
+        ops.reset_launch_counts()
+        eng.run()
+        streams[dev, mode] = [list(r.generated) for r in reqs]
+        counts[dev, mode] = ops.launch_counts()
+    assert streams["cuda", "append"] == streams["cuda", "scatter"] \
+        == streams["cpu", "append"]
+    assert counts["cuda", "scatter"]["decode_attention"] > 0
+    assert counts["cuda", "append"]["decode_attention"] == 0
+    assert counts["cuda", "append"]["flash_attention"] > 0
 
 
 # ---------------------------------------------------------------------------

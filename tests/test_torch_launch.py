@@ -14,6 +14,9 @@ against the reference's ``launch/`` and ``Model``.
   shape divided by the sizes of the mesh axes the reference's spec for the
   same leaf names. The reference's specs come from a subprocess with 256
   host devices (``XLA_FLAGS``), time-limited.
+* The policies that set the reference's modes (``skip``, ``kvapp``,
+  ``manual_skip``) on granite-3-8b and qwen2-moe-a2.7b: the reference's
+  shapes, specs and ``donate``, and its analytic FLOPs for the policy.
 * ``rules_for``, the record's keys, the refusals, the CLI's directory, and
   ``structs``/``init_cache(as_structs=True)``/``cache_axes``/
   ``state_structs``/``cross_kv_structs`` for every registered config.
@@ -68,6 +71,18 @@ TINY = {"train": ("train_tiny", "train", 32, 2),
 GRANITE_POLICIES = [("train_4k", "baseline"), ("prefill_32k", "baseline"),
                     ("decode_32k", "baseline"), ("prefill_32k", "manual"),
                     ("prefill_32k", "ppipe")]
+# the policies that name the reference's modes ("skip": causal_skip,
+# "kvapp": the append decode mode), each on two archs: {policy: [(arch,
+# shape)]}; manual TP refuses qwen2-moe's prefill in both packages, so its
+# manual_skip cell is the train step's
+MODE_CELLS = {
+    "skip": [("granite-3-8b", "prefill_32k"),
+             ("qwen2-moe-a2.7b", "prefill_32k")],
+    "kvapp": [("granite-3-8b", "decode_32k"),
+              ("qwen2-moe-a2.7b", "decode_32k")],
+    "manual_skip": [("granite-3-8b", "prefill_32k"),
+                    ("qwen2-moe-a2.7b", "train_4k")],
+}
 LIMIT_S = 180
 
 
@@ -241,9 +256,30 @@ def _reference_specs_main(out_path):
         args, in_sh = _jflat(cell[1]), _jflat(cell[2])
         out[f"{shape_name}/{policy}"] = {
             k: [list(a.shape), np.dtype(a.dtype).itemsize,
-                [list(p) if isinstance(p, tuple) else p
-                 for p in in_sh[k].spec]] for k, a in args.items()}
+                _jspec_json(in_sh[k].spec)] for k, a in args.items()}
+    for policy, cells in MODE_CELLS.items():
+        for arch, shape_name in cells:
+            shape = JSHAPES[shape_name]
+            mcfg = jget(arch)
+            if "manual" in policy and shape.kind == "prefill":
+                cell = jtp.make_manual_prefill(mcfg, jprod_mesh(),
+                                               shape.global_batch,
+                                               shape.seq_len)
+            else:
+                cell = jmake_cell(mcfg, shape, jprod_mesh(), policy=policy)
+            out[f"{arch}/{shape_name}/{policy}"] = {
+                "args": {k: [list(a.shape), np.dtype(a.dtype).name]
+                         for k, a in _jflat(cell[1]).items()},
+                "in": {k: _jspec_json(v.spec)
+                       for k, v in _jflat(cell[2]).items()},
+                "out": {k: _jspec_json(v.spec)
+                        for k, v in _jflat(cell[3]).items()},
+                "donate": list(cell[4])}
     Path(out_path).write_text(json.dumps(out))
+
+
+def _jspec_json(spec):
+    return [list(p) if isinstance(p, tuple) else p for p in spec]
 
 
 @pytest.fixture(scope="module")
@@ -317,10 +353,60 @@ def test_run_cell_record_has_reference_keys():
 
 
 @pytest.mark.parametrize("policy", ["skip", "kvapp", "manual_skip"])
-def test_not_ported_policies_raise(policy):
-    with pytest.raises(NotImplementedError, match="5b.3"):
-        dryrun.run_cell("granite-3-8b", "prefill_32k", policy=policy,
-                        verbose=False)
+def test_not_ported_policies_raise(policy, reference_specs, monkeypatch):
+    """The policies that set the reference's modes raise nothing: on each
+    arch of ``MODE_CELLS`` the cell's argument shapes and dtypes, in and
+    out specs and ``donate`` equal the reference's for the same policy,
+    ``run_cell`` gives a record whose analytic FLOPs are the reference's
+    ``analyze`` for that policy, runs the cell under the policy's modes,
+    and puts the modes back after it."""
+    from repro.roofline.analysis import analyze as janalyze
+    from repro_torch.distributed import manual_tp
+    from repro_torch.kernels import ops
+    inner, seen = dryrun._run_cell, []
+
+    def spy(*a):
+        seen.append((ops.attention_mode(), ops.decode_mode()))
+        return inner(*a)
+
+    monkeypatch.setattr(dryrun, "_run_cell", spy)
+    want_modes = ("causal_skip" if "skip" in policy else "masked_full",
+                  "append" if "kvapp" in policy else "scatter")
+    for arch, shape_name in MODE_CELLS[policy]:
+        cfg, shape = get_config(arch), SHAPES[shape_name]
+        if "manual" in policy and shape.kind == "prefill":
+            cell = manual_tp.make_manual_prefill(
+                cfg, make_production_mesh(), shape.global_batch,
+                shape.seq_len)
+        else:
+            cell = make_cell(cfg, shape, make_production_mesh(),
+                             policy=policy)
+        ref = reference_specs[f"{arch}/{shape_name}/{policy}"]
+        assert {k: [list(s), d] for k, (s, d) in _sig_t(cell[1]).items()} \
+            == ref["args"], arch
+        assert {k: [list(p) if isinstance(p, tuple) else p for p in v]
+                for k, v in _specs_t(cell[2]).items()} == ref["in"], arch
+        assert {k: [list(p) if isinstance(p, tuple) else p for p in v]
+                for k, v in _specs_t(cell[3]).items()} == ref["out"], arch
+        assert list(cell[4]) == ref["donate"], arch
+        rec = dryrun.run_cell(arch, shape_name, policy=policy, verbose=False)
+        assert rec["ok"] and rec["policy"] == policy
+        assert seen.pop() == want_modes, arch
+        assert (ops.attention_mode(), ops.decode_mode()) == \
+            ("masked_full", "scatter")
+        want = janalyze(arch, JSHAPES[shape_name], "16x16", 256, {},
+                        object(), "", jget(arch), policy=policy).row()
+        for key in ("flops_total", "model_flops"):
+            assert rec[key] == pytest.approx(want[key], rel=1e-12), key
+        base = dryrun.run_cell(arch, shape_name, verbose=False)
+        assert (rec["flops_total"] < base["flops_total"]) == \
+            ("skip" in policy and shape.kind != "decode")
+    if policy == "manual_skip":      # manual TP refuses a MoE's prefill
+        from repro.distributed import manual_tp as jtp
+        assert not jtp.supports(jget("qwen2-moe-a2.7b"))
+        with pytest.raises(ValueError, match="manual TP unsupported"):
+            dryrun.run_cell("qwen2-moe-a2.7b", "prefill_32k", policy=policy,
+                            verbose=False)
 
 
 def test_main_writes_its_own_directory(tmp_path):
