@@ -459,6 +459,22 @@ def sdpa_flash(torch, q, k, v, causal=True):
                                                   is_causal=causal)
 
 
+FLASH_STATS = ("tile_rows", "tflops")   # flash_stats' keys
+
+
+def flash_stats(torch, launch, flops, ms):
+    """The tile (query rows a block) that the flash kernel's tensor-core
+    body took on one call of ``launch``, as the C entry point reports it
+    (``TILE_LAUNCHES``), and the TFLOP/s of ``flops`` in ``ms``."""
+    from repro_torch.kernels import flash_attention as kfa
+    before = dict(kfa.TILE_LAUNCHES)
+    launch()
+    took = [t for t, n in kfa.TILE_LAUNCHES.items() if n != before[t]]
+    if len(took) != 1:
+        raise RuntimeError(f"flash: one launch moved tile counts {took}")
+    return {"tile_rows": took[0], "tflops": flops / ms / 1e9}
+
+
 def sdpa_contig_decode(torch, q, k, v, kv_len):
     import torch.nn.functional as F
     rep = q.shape[2] // k.shape[2]
@@ -653,6 +669,9 @@ def kernel_phase(torch, quick):
                                flush=flush),
             bound_ms=b_ms, bound_by=b_by, max_abs_err=err[0],
             err_over_tol=err[1])
+        flash[sq].update(flash_stats(
+            torch, lambda: kfa.flash_attention(q, k, v), flops,
+            flash[sq]["ms"]))
         log(f"  flash Sq=Sk={sq}: {flash[sq]}")
     rows["flash_attention"] = flash[412]
 
@@ -945,7 +964,7 @@ def profile_steps(torch, step, n=4):
 # the __global__ functions of src/repro_torch/csrc, as the profiler names them
 PORT_KERNELS = ("ragged_mma_kernel", "ragged_kernel",
                 "paged_decode_mma_kernel", "paged_decode_kernel",
-                "flash_mma_kernel", "flash_kernel", "decode_mma_kernel",
+                "flash_wgmma_kernel", "flash_kernel", "decode_mma_kernel",
                 "decode_kernel", "decode_combine_kernel", "wkv6_kernel")
 
 
@@ -1005,7 +1024,7 @@ def prefill_profile(torch, model, params, prompt):
     forward's device ms (all kernels; one stream) and the attention
     kernel's ms and share of it."""
     tokens = torch.tensor([prompt], dtype=torch.int32, device="cuda")
-    flash = ("flash_mma_kernel", "flash_kernel")
+    flash = ("flash_wgmma_kernel", "flash_kernel")
     ragged = ("ragged_mma_kernel", "ragged_kernel")
     res = {}
     for label, kw, names in (
@@ -2402,6 +2421,10 @@ def g1_kernel_phase(torch, reps, flush):
         sdpa_flash(torch, qf, kf, vf),
         2 * (2 * qf.numel() + kf.numel() + vf.numel()),
         4 * h * HD * 412 * 413 // 2)
+    rows["flash_attention"].update(flash_stats(
+        torch, lambda: kfa.flash_attention(qf, kf, vf),
+        4 * h * HD * 412 * 413 // 2,
+        rows["flash_attention"]["ms"]))
 
     kc, vc = (torch.randn((len(lens), ENGINE_S, h, HD), generator=g,
                           device="cuda").bfloat16() for _ in range(2))
@@ -2411,10 +2434,12 @@ def g1_kernel_phase(torch, reps, flush):
             *(a.float() if f32 else a for a in (qd, kc, vc)), kl),
         sdpa_contig_decode(torch, qd, kc, vc, kl), dec_bytes, dec_flops)
     for name, r in rows.items():
+        tile = (f", tile {r['tile_rows']} rows, {r['tflops']:.1f} TFLOP/s"
+                if "tile_rows" in r else "")
         log(f"  G=1 {name}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms "
             f"by {r['bound_by']}, plain {r['plain_ms']:.4f} ms, library "
             f"{r['library_ms']:.4f} ms; without the hold "
-            f"{r['ms_host_gap']:.4f} ms)")
+            f"{r['ms_host_gap']:.4f} ms{tile})")
     log("G1 " + json.dumps(rows))
     return rows
 
@@ -2733,7 +2758,7 @@ def moe_family(torch, prompts):
         log(f"  qwen2-moe fused vs paged stream, first divergence: {w}")
     prefill = family_prefill_profile(torch, model, params, prompts[2], (
         ("contiguous (flash)", dict(paged=False),
-         ("flash_mma_kernel", "flash_kernel"), 412),
+         ("flash_wgmma_kernel", "flash_kernel"), 412),
         ("paged (ragged)", dict(paged=True),
          ("ragged_mma_kernel", "ragged_kernel"), 416)))
     return {"model": info, "paths": paths, "launches": launches,
@@ -2803,9 +2828,9 @@ def jamba_family(torch, prompts):
         f"tokens")
     prefill = family_prefill_profile(torch, model, params, prompts[2], (
         ("contiguous (flash)", dict(paged=False),
-         ("flash_mma_kernel", "flash_kernel"), 412),
+         ("flash_wgmma_kernel", "flash_kernel"), 412),
         ("paged (flash over the pools)", dict(paged=True),
-         ("flash_mma_kernel", "flash_kernel"), 412)))
+         ("flash_wgmma_kernel", "flash_kernel"), 412)))
     return {"model": info, "paths": paths, "launches": launches,
             "bodies": bodies, "contiguous_agreement": agree,
             "layout_witness": witness, "prefill_profile": prefill}
@@ -2925,6 +2950,13 @@ def encdec_vlm_kernel_phase(torch, reps, flush):
             sdpa_flash(torch, q, k, v, causal),
             2 * (2 * q.numel() + k.numel() + v.numel()),
             4 * hq * hd * flash_pairs(b, sq, sk, causal))
+        rows[label].update(flash_stats(
+            torch, lambda: kfa.flash_attention(q, k, v, causal=causal),
+            4 * hq * hd * flash_pairs(b, sq, sk, causal),
+            rows[label]["ms"]))
+        log(f"  {label}: flash {rows[label]['ms']:.4f} ms, tile "
+            f"{rows[label]['tile_rows']} rows, "
+            f"{rows[label]['tflops']:.1f} TFLOP/s")
 
     def decode(prefix, lens, hq, hkv, hd, s, paged):
         kl = torch.tensor(lens, dtype=torch.int32, device="cuda")
@@ -3099,10 +3131,10 @@ def whisper_family(torch, prompts):
 
     enc_ms, _, enc_wall, enc_top = profiled_call(
         torch, lambda: encdec.encode(cfg, params, frames[2]),
-        ("flash_mma_kernel", "flash_kernel"))
+        ("flash_wgmma_kernel", "flash_kernel"))
     pre_ms, pre_attn, pre_wall, pre_top = profiled_prefill(
         torch, model, params, toks[2], dict(frames=frames[2], paged=False),
-        ("flash_mma_kernel", "flash_kernel"))
+        ("flash_wgmma_kernel", "flash_kernel"))
     n_prof = 4
     base = MAX_NEW - 1
     tok = torch.tensor([[s[-1]] for s in streams], dtype=torch.int32,
@@ -3240,7 +3272,7 @@ def vlm_family(torch):
                      ("paged", dict(paged=True))):
         ms, attn, wall, top = profiled_prefill(
             torch, model, params, tokens, dict(kw, prefix_embeds=pre),
-            ("flash_mma_kernel", "flash_kernel"))
+            ("flash_wgmma_kernel", "flash_kernel"))
         prefill[name] = {"rows": VLM_IMAGE_ROWS + len(prompts[2]),
                          "device_ms": ms, "flash_ms": attn,
                          "flash_share": attn / ms, "profiled_wall_ms": wall,
@@ -3395,6 +3427,11 @@ def train_kernel(torch, seq, reps, flush):
                        q, k, v, dout, True, 0), 3, 1, flush),
                library_fwd_bwd_ms=time_ms(torch, library_fwd_bwd, 5, 1,
                                           flush))
+    rec.update(flash_stats(torch, lambda: kfa.flash_attention(q, k, v),
+                           4 * hq * hd * flash_pairs(b, s, s, True),
+                           rec["ms"]))
+    log(f"  flash at the train shape: {rec['ms']:.4f} ms, tile "
+        f"{rec['tile_rows']} rows, {rec['tflops']:.1f} TFLOP/s")
     log("TRAIN_KERNEL " + json.dumps(rec))
     return rec
 
@@ -3487,7 +3524,7 @@ def train_profile(torch, step, params, state, batch):
             if e.device_type == DeviceType.CUDA}
     device = sum(kern.values())
     flash = sum(v for k, v in kern.items()
-                if "flash_mma_kernel" in k or "flash_kernel" in k)
+                if "flash_wgmma_kernel" in k or "flash_kernel" in k)
     rec = {"device_ms": device, "profiled_wall_ms": wall,
            "busy": device / wall, "flash_forward_ms": flash,
            "flash_forward_share": flash / device,
@@ -3753,6 +3790,9 @@ def dist_kernel(torch, label, b, s, hq, hkv, pairs, reps, flush):
                                   flush=flush),
                bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
                err_over_tol=ratio)
+    rec.update(flash_stats(torch, lambda: kfa.flash_attention(q, k, v),
+                           4 * hq * hd * flash_pairs(b, s, s, True),
+                           rec["ms"]))
     return rec
 
 
@@ -3789,7 +3829,8 @@ def dist_kernels(torch, cfg, flush):
         log(f"  DIST kernel {r['shape']}: {r['ms']:.3f} ms (bound "
             f"{r['bound_ms']:.3f}, {r['bound_by']}; SDPA "
             f"{r['library_ms']:.3f}; plain {r['plain_ms']:.3f} on "
-            f"{r['plain_on']})")
+            f"{r['plain_on']}; tile {r['tile_rows']} rows, "
+            f"{r['tflops']:.1f} TFLOP/s)")
     log("DIST_KERNELS " + json.dumps(out))
     return out
 
@@ -4795,13 +4836,16 @@ def main():
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"],
                         "err_over_tol": r["err_over_tol"],
+                        **{k: r[k] for k in FLASH_STATS if k in r},
                         "g1": ({k: g1[name][k] for k in (
                             "ms", "plain_ms", "bound_ms", "bound_by",
-                            "library_ms", "max_abs_err")}
+                            "library_ms", "max_abs_err", *FLASH_STATS)
+                            if k in g1[name]}
                             if name in g1 else None),
                         "encdec_vlm": {label: {k: r[k] for k in (
                             "ms", "plain_ms", "bound_ms", "bound_by",
-                            "library_ms", "max_abs_err")}
+                            "library_ms", "max_abs_err", *FLASH_STATS)
+                            if k in r}
                             for label, r in encdec_vlm.items()
                             if r["kernel"] == name},
                         "train": (train_kernel_row if name == "flash_attention"

@@ -6,11 +6,14 @@ Kernel: ``csrc/flash_attention.cu`` (replaces
 ``src/repro/kernels/flash_attention.py::flash_attention``); plain version:
 ``kernels/ref.py::mha_reference``.
 
-Two bodies, chosen by dtype in the C entry point: bf16 and fp16 run on the
-tensor cores (``mma.sync``, K/V tiles by ``cp.async``; 64 query rows a
-block, a tile of positions times the GQA group G); float32 runs on the CUDA
-cores (32 rows a block, f32 FMAs), so the f32 checks hold it to 1e-5.
-``BODY_LAUNCHES`` counts each body's launches apart.
+Two bodies, chosen by dtype and GQA group G in the C entry point: bf16 and
+fp16 with G <= 64 run on the tensor cores (``wgmma``, K/V stages by TMA
+into an mbarrier ring fed by a producer warp; a tile of positions times G
+is 128 query rows, two consumer warpgroups, or 64 where that grid would
+leave SMs idle); float32 and larger groups run on the CUDA cores (32 rows
+a block, f32 FMAs), so the f32 checks hold it to 1e-5.
+``BODY_LAUNCHES`` counts each body's launches apart, and ``TILE_LAUNCHES``
+the tensor-core body's by the tile the entry point reports it launched.
 """
 
 from __future__ import annotations
@@ -29,11 +32,13 @@ DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 LAUNCHES = {"flash_attention": 0}
 BODY_LAUNCHES = {"flash_attention/tensor_core": 0,
                  "flash_attention/cuda_core": 0}
+# the tensor-core body's launches by its tile's query rows
+TILE_LAUNCHES = {64: 0, 128: 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = ([_P] * 4 + [_I] * 8 + [ctypes.c_float, _I, _P,
-                                    ctypes.POINTER(_I)])
+_ARGTYPES = ([_P] * 4 + [_I] * 8 + [ctypes.c_float, _I, _P]
+             + [ctypes.POINTER(_I)] * 2)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0):
@@ -58,13 +63,16 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0):
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     fn = _build.entry("flash_attention", _ARGTYPES)
-    body = ctypes.c_int(-1)
+    body, tile = ctypes.c_int(-1), ctypes.c_int(-1)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
              sk, hq, hkv, hd, int(bool(causal)), int(q_offset),
              softmax_scale(hd), _build.dtype_code(q.dtype), stream,
-             ctypes.byref(body))
+             ctypes.byref(body), ctypes.byref(tile))
     if err:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
     LAUNCHES["flash_attention"] += 1
     BODY_LAUNCHES[f"flash_attention/{_build.BODIES[body.value]}"] += 1
+    if tile.value:
+        TILE_LAUNCHES[tile.value] += 1
     return out
+

@@ -147,7 +147,7 @@ def body_counts() -> Dict[str, int]:
 
 
 def reset_launch_counts():
-    for counts in _COUNTS + _BODY_COUNTS:
+    for counts in _COUNTS + _BODY_COUNTS + (_fa.TILE_LAUNCHES,):
         for k in counts:
             counts[k] = 0
 

@@ -530,9 +530,10 @@ def _qkv(b, sq, sk, hq, hkv, hd, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("hd", [16, 32, 64, 128])
-@pytest.mark.parametrize("group", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("group", [1, 2, 3, 4, 7, 8])
 def test_cuda_flash_matches_plain(cuda, group, hd, dtype):
-    """Causal prefill (Sq = Sk, not a multiple of any tile) at batch 2."""
+    """Causal prefill (Sq = Sk, not a multiple of any tile) at batch 2; G 7
+    leaves a spare row in the tensor-core body's 64-row tile."""
     dt = DTYPES[dtype]
     q, k, v = [a.to(cuda, dt) for a in _qkv(2, 45, 45, 2 * group, 2, hd)]
     ops.reset_launch_counts()
@@ -545,9 +546,11 @@ def test_cuda_flash_matches_plain(cuda, group, hd, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal,q_offset,sq,sk", [
     (True, 0, 300, 300), (True, 17, 40, 57), (True, 70, 9, 33),
-    (False, 0, 13, 77), (False, 5, 64, 1)],
+    (False, 0, 13, 77), (False, 5, 64, 1), (True, 0, 600, 600),
+    (True, 130, 40, 170), (False, 0, 300, 1500)],
     ids=["causal-300", "causal-offset", "causal-offset-past-sk",
-         "noncausal", "noncausal-sk1"])
+         "noncausal", "noncausal-sk1", "causal-ring-wraps",
+         "causal-offset-past-a-stage", "noncausal-sk1500"])
 @pytest.mark.parametrize("group", [1, 4])
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_cuda_flash_offsets_and_edges(cuda, dtype, group, causal, q_offset,
@@ -565,6 +568,111 @@ def test_cuda_flash_offsets_and_edges(cuda, dtype, group, causal, q_offset,
     want = ref.mha_reference(q.float(), k.float(), v.float(), causal=causal,
                              q_offset=q_offset)
     _check(got, want, dt)
+
+
+# (B, Sq, Sk, Hq, Hkv, hd, causal, q_offset, tile) of the tensor-core
+# body's cases at each tile: G 7's spare rows (one in a 64-row tile, two in
+# a 128-row one), the K/V ring wrapping (stages of 64 keys in the 64-row
+# tile, 128 in the 128-row one), batch 2 with Sk no multiple of a stage,
+# q_offset past a stage boundary, non-causal over 1,500 keys at hd 64
+FLASH_TILE_CASES = {
+    "64-g7-spare-row": (2, 45, 77, 14, 2, 64, True, 0, 64),
+    "64-ring-wraps": (1, 600, 600, 4, 2, 128, True, 0, 64),
+    "64-offset-past-a-stage": (1, 40, 170, 8, 2, 64, True, 130, 64),
+    "64-noncausal-sk1500": (1, 300, 1500, 12, 12, 64, False, 0, 64),
+    "128-g7-spare-rows": (2, 600, 600, 14, 2, 128, True, 0, 128),
+    "128-b2-sk-not-a-stage": (2, 1100, 1100, 8, 2, 128, True, 0, 128),
+    "128-offset-past-a-stage": (2, 600, 900, 16, 4, 64, True, 300, 128),
+    "128-noncausal-sk1500": (2, 700, 1500, 12, 12, 64, False, 0, 128),
+}
+
+
+def _sms(dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _tile_of(launch):
+    """``launch()``'s output and the tile (query rows a block) that the
+    entry point reports its one flash launch took."""
+    before = dict(flash_attention.TILE_LAUNCHES)
+    out = launch()
+    took = [t for t, n in flash_attention.TILE_LAUNCHES.items()
+            if n != before[t]]
+    assert len(took) == 1, took
+    return out, took[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bf16", "fp16"])
+@pytest.mark.parametrize("case", sorted(FLASH_TILE_CASES))
+def test_cuda_flash_tensor_core_tiles(cuda, case, dtype):
+    """The tensor-core body at each of its two tiles (the tile the shape
+    takes is asserted), each output row within its limit of the float32
+    plain version."""
+    b, sq, sk, hq, hkv, hd, causal, q_offset, tile = FLASH_TILE_CASES[case]
+    dt = DTYPES[dtype]
+    q, k, v = [a.to(cuda, dt) for a in _qkv(b, sq, sk, hq, hkv, hd,
+                                            seed=8)]
+    ops.reset_launch_counts()
+    got, took = _tile_of(lambda: flash_attention.flash_attention(
+        q, k, v, causal=causal, q_offset=q_offset))
+    assert _bodies("flash_attention") == (1, 0)
+    assert took == tile
+    want = ref.mha_reference(q.float(), k.float(), v.float(), causal=causal,
+                             q_offset=q_offset)
+    _check(got, want, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [64, 128])
+def test_cuda_flash_never_reads_past_the_edge_on_either_tile(cuda, tile):
+    """NaN in every K/V row past the causal edge of the last query (the
+    stage that crosses the edge holds both kinds): no output may turn
+    non-finite, and every row equals the plain version over the finite
+    keys."""
+    b, hq, hkv = (1, 8, 2) if tile == 64 else (2, 32, 8)
+    sq, sk = 300, 700
+    q, k, v = _qkv(b, sq, sk, hq, hkv, 128, seed=9)
+    k[:, sq:] = float("nan")
+    v[:, sq:] = float("nan")
+    q, k, v = [a.to(cuda, torch.bfloat16) for a in (q, k, v)]
+    out, took = _tile_of(lambda: flash_attention.flash_attention(
+        q, k, v, causal=True))
+    assert took == tile
+    assert bool(torch.isfinite(out).all())
+    want = ref.mha_reference(q.float(), k[:, :sq].float(), v[:, :sq].float(),
+                             causal=True)
+    _assert_rows_close(out, want)
+
+
+# (B, Sq, Hq, Hkv) -> the flash tile on a 132-SM H100: granite-3-8b's
+# serving prefill, train step and 32k prefills; llava's prefix (G 7, two
+# spare rows a 128-row tile); whisper's encoder and decoder prefills and a
+# cross-attention decode row; G 64 (one position a 64-row tile) on either
+# side of 132 blocks
+FLASH_TILES = [((1, 412, 32, 8), 64), ((1, 4096, 32, 8), 128),
+               ((2, 32768, 32, 8), 128), ((1, 8192, 16, 16), 128),
+               ((1, 988, 56, 8), 128), ((1, 1500, 12, 12), 128),
+               ((1, 412, 12, 12), 64), ((4, 1, 12, 12), 64),
+               ((1, 262, 64, 1), 64), ((1, 263, 64, 1), 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,tile", FLASH_TILES,
+                         ids=["x".join(map(str, s)) for s, _ in FLASH_TILES])
+def test_flash_tile_rows_follow_the_grid(cuda, shape, tile):
+    """The tile a launch reports: 128 rows unless that grid, ceil(Sq /
+    (128 // G)) * Hkv * B blocks, is smaller than the card's SMs; then
+    64."""
+    b, sq, hq, hkv = shape
+    q = torch.zeros((b, sq, hq, 64), device=cuda, dtype=torch.bfloat16)
+    k = torch.zeros((b, sq, hkv, 64), device=cuda, dtype=torch.bfloat16)
+    _, took = _tile_of(lambda: flash_attention.flash_attention(q, k, k))
+    torch.cuda.synchronize(cuda)
+    blocks = -(-sq // (128 // (hq // hkv))) * hkv * b
+    assert (took == 128) == (blocks >= _sms(cuda))
+    if _sms(cuda) == 132:
+        assert took == tile
 
 
 def _contig_decode(lens, s, hq, hkv, hd, seed=0):

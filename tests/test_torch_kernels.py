@@ -550,6 +550,19 @@ def test_wkv6_constants_match_the_source():
         twkv.ROW_LANES]
 
 
+from repro_torch.kernels import flash_attention as tfa  # noqa: E402
+
+
+def test_reset_launch_counts_clears_flash_tiles():
+    """``reset_launch_counts`` zeroes flash's launches by tile with the
+    other counts, so a window reads only its own launches' tiles."""
+    tfa.TILE_LAUNCHES.update({64: 3, 128: 5})
+    tfa.LAUNCHES["flash_attention"] = 8
+    ops.reset_launch_counts()
+    assert tfa.TILE_LAUNCHES == {64: 0, 128: 0}
+    assert ops.launch_counts()["flash_attention"] == 0
+
+
 # ---------------------------------------------------------------------------
 # the tensor-core bodies' rounding points, emulated in plain torch
 # ---------------------------------------------------------------------------
@@ -560,8 +573,9 @@ FULL = dict(hq=32, hkv=8, hd=128, bs=16)   # granite-3-8b's attention
 
 
 def _emulate_mma(qs, kf, vf, mask, quant=None, rounded=True):
-    """The tensor-core body's arithmetic (``csrc/mma_attention.cuh``) with
-    the softmax taken whole: qs (Hkv,G,tr,hd), kf/vf (Hkv,1,n,hd) float
+    """The tensor-core bodies' arithmetic (``csrc/mma_attention.cuh``, and
+    flash's ``wgmma`` body, which rounds at the same points) with the
+    softmax taken whole: qs (Hkv,G,tr,hd), kf/vf (Hkv,1,n,hd) float
     holding bf16 values or int8 codes, mask (tr,n). 16-bit pages: P rounded
     to bf16, l summed from the rounded P. int8 pages (``quant`` = scale and
     zero (Hkv,1,1,n) each of K and V): scale and zero factored out of both
