@@ -29,7 +29,10 @@ Run from the root of a checkout. Phases:
    same inputs: the ragged kernel on a mixed batch (two prefill chunks with
    history, four decode rows, pad tiles) with bf16, fp16 and int8 pages
    and at a fused decode-only step (the four decode rows alone, bf16 and
-   int8 pages; printed as ``RAGGED_DECODE``), the paged decode kernel at
+   int8 pages; printed as ``RAGGED_DECODE``, whose bf16 output must equal
+   the paged decode kernel's bit for bit on the same rows; each ragged
+   line names the body and span tile its launch reported), the paged
+   decode kernel at
    batch 4 with kv_len up to 1,024, flash
    attention at batch 1, causal, Sq = Sk = 300 and 412, and the contiguous
    decode kernel at batch 4, S 1,024, kv_len 1,024/777/300/1 (and a
@@ -460,6 +463,32 @@ def sdpa_flash(torch, q, k, v, causal=True):
 
 
 FLASH_STATS = ("tile_rows", "tflops")   # flash_stats' keys
+RAGGED_STATS = ("body", "tile_rows")    # ragged_stats' keys
+
+
+def ragged_stats(torch, launch):
+    """The body and the span kernel's tile (query rows a block) that the
+    ragged kernel took on one call of ``launch``, as the C entry point
+    reports them (``BODY_LAUNCHES``, ``TILE_LAUNCHES``; tile 0: the
+    CUDA-core body)."""
+    from repro_torch.kernels import ragged_attention as kra
+    bodies, tiles = dict(kra.BODY_LAUNCHES), dict(kra.TILE_LAUNCHES)
+    launch()
+    body = [k.split("/")[1] for k, n in kra.BODY_LAUNCHES.items()
+            if n != bodies[k]]
+    took = [t for t, n in kra.TILE_LAUNCHES.items() if n != tiles[t]]
+    if len(body) != 1 or len(took) > 1:
+        raise RuntimeError(f"ragged: one launch moved bodies {body}, "
+                           f"tiles {took}")
+    return {"body": body[0], "tile_rows": took[0] if took else 0}
+
+
+def ragged_line(label, r):
+    """One ragged timing line: ms, bound, and what the launch reported."""
+    return (f"  {label}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']}; {r['body']} body, span tile {r['tile_rows']} "
+            f"rows; plain {r['plain_ms']:.4f}, library {r['library_ms']:.4f}"
+            f", host gap {r['ms_host_gap']:.4f} ms)")
 
 
 def flash_stats(torch, launch, flops, ms):
@@ -537,6 +566,10 @@ def kernel_phase(torch, quick):
                            reps, flush=flush),
         bound_ms=b_ms, bound_by=b_by, max_abs_err=err[0],
         err_over_tol=err[1])
+    rows["ragged_paged_attention"].update(ragged_stats(
+        torch, lambda: kra.ragged_paged_attention(q, k, v, tb, row, pos)))
+    log(ragged_line("ragged mixed batch, bf16 pages",
+                    rows["ragged_paged_attention"]))
     nbytes, flops = ragged_cost(q, 2 * HKV * (HD + 4 * 2), tb, row, pos,
                                 HKV, HD)
     b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS)
@@ -552,6 +585,11 @@ def kernel_phase(torch, quick):
                                               pos), reps, flush=flush),
         bound_ms=b_ms, bound_by=b_by, max_abs_err=err_q8[0],
         err_over_tol=err_q8[1])
+    rows["ragged_paged_attention_q8"].update(ragged_stats(
+        torch, lambda: kra.ragged_paged_attention(q, kq, vq, tb, row, pos,
+                                                  kv_quant=quant)))
+    log(ragged_line("ragged mixed batch, int8 pages",
+                    rows["ragged_paged_attention_q8"]))
 
     # -- ragged at a fused decode-only step: the four decode rows alone (the
     # shape of most of the int8 engine's launches: 4 tiles x 8 kv heads =
@@ -576,6 +614,18 @@ def kernel_phase(torch, quick):
                          want)
         if not bool((got[pos < 0] == 0).all()):
             raise AssertionError("ragged decode-only: pad rows are not 0")
+        if kvq is None:
+            # the decode rows through the paged decode kernel: its split
+            # body and combine, so the same bits
+            first = torch.nonzero(pos >= 0).flatten()
+            paged = kda.paged_decode_attention(
+                q[first][:, None].contiguous(), k, v, tb,
+                (pos[first] + 1).to(torch.int32))
+            if not torch.equal(got[first], paged[:, 0]):
+                raise AssertionError("ragged decode-only step, bf16 pages: "
+                                     "not the paged decode kernel's bits")
+            log("  ragged decode-only step, bf16 pages: equal to the paged "
+                "decode kernel's output bit for bit")
         nbytes, flops = ragged_cost(q, row_bytes, tb, row, pos, HKV, HD)
         b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS)
         decode_rows[label] = dict(
@@ -588,8 +638,11 @@ def kernel_phase(torch, quick):
                                                   pos), reps, flush=flush),
             bound_ms=b_ms, bound_by=b_by, max_abs_err=err[0],
             err_over_tol=err[1])
-        log(f"  ragged decode-only step ({label} pages, kv_len "
-            f"1024/777/300/1): {decode_rows[label]}")
+        decode_rows[label].update(ragged_stats(
+            torch, lambda: kra.ragged_paged_attention(q, k, v, tb, row, pos,
+                                                      kv_quant=kvq)))
+        log(ragged_line(f"ragged decode-only step ({label} pages, kv_len "
+                        f"1024/777/300/1)", decode_rows[label]))
     log("RAGGED_DECODE " + json.dumps(decode_rows))
 
     # -- paged decode, f32 at hd 16, TF32 off
@@ -962,7 +1015,8 @@ def profile_steps(torch, step, n=4):
 
 
 # the __global__ functions of src/repro_torch/csrc, as the profiler names them
-PORT_KERNELS = ("ragged_mma_kernel", "ragged_kernel",
+PORT_KERNELS = ("ragged_split_kernel", "ragged_combine_kernel",
+                "ragged_span_kernel", "ragged_kernel",
                 "paged_decode_mma_kernel", "paged_decode_kernel",
                 "flash_wgmma_kernel", "flash_kernel", "decode_mma_kernel",
                 "decode_kernel", "decode_combine_kernel", "wkv6_kernel")
@@ -1025,7 +1079,8 @@ def prefill_profile(torch, model, params, prompt):
     kernel's ms and share of it."""
     tokens = torch.tensor([prompt], dtype=torch.int32, device="cuda")
     flash = ("flash_wgmma_kernel", "flash_kernel")
-    ragged = ("ragged_mma_kernel", "ragged_kernel")
+    ragged = ("ragged_split_kernel", "ragged_combine_kernel",
+              "ragged_span_kernel", "ragged_kernel")
     res = {}
     for label, kw, names in (
             ("contiguous (flash)", dict(paged=False), flash),
@@ -2392,6 +2447,9 @@ def g1_kernel_phase(torch, reps, flush):
             v.float() if f32 else v, tb, row, pos),
         sdpa_ragged(torch, q, k, v, tb, row, pos),
         *ragged_cost(q, 2 * h * HD * 2, tb, row, pos, h, HD))
+    rows["ragged_paged_attention"].update(ragged_stats(
+        torch, lambda: kra.ragged_paged_attention(q, k, v, tb, row, pos)))
+    log(ragged_line("G=1 ragged bf16 pages", rows["ragged_paged_attention"]))
 
     nb = ENGINE_TABLE
     n_pages = len(lens) * nb + 1
@@ -2435,7 +2493,9 @@ def g1_kernel_phase(torch, reps, flush):
         sdpa_contig_decode(torch, qd, kc, vc, kl), dec_bytes, dec_flops)
     for name, r in rows.items():
         tile = (f", tile {r['tile_rows']} rows, {r['tflops']:.1f} TFLOP/s"
-                if "tile_rows" in r else "")
+                if "tflops" in r else
+                f", {r['body']} body, span tile {r['tile_rows']} rows"
+                if "body" in r else "")
         log(f"  G=1 {name}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms "
             f"by {r['bound_by']}, plain {r['plain_ms']:.4f} ms, library "
             f"{r['library_ms']:.4f} ms; without the hold "
@@ -2760,7 +2820,8 @@ def moe_family(torch, prompts):
         ("contiguous (flash)", dict(paged=False),
          ("flash_wgmma_kernel", "flash_kernel"), 412),
         ("paged (ragged)", dict(paged=True),
-         ("ragged_mma_kernel", "ragged_kernel"), 416)))
+         ("ragged_split_kernel", "ragged_combine_kernel", "ragged_span_kernel",
+          "ragged_kernel"), 416)))
     return {"model": info, "paths": paths, "launches": launches,
             "bodies": bodies, "agreement_with_paged": agree,
             "fused_composition_witness": witness,
@@ -3024,7 +3085,15 @@ def encdec_vlm_kernel_phase(torch, reps, flush):
                     ref.dequantize_kv(vq, vs, vz).bfloat16(), tb, row, pos),
         *ragged_cost(q, 2 * lv[1] * lv[2] + 4 * lv[1] * 4, tb, row, pos,
                      lv[1], lv[2]))
+    rows["llava ragged bf16 pages"].update(ragged_stats(
+        torch, lambda: kra.ragged_paged_attention(q, k, v, tb, row, pos)))
+    rows["llava ragged int8 pages"].update(ragged_stats(
+        torch, lambda: kra.ragged_paged_attention(q, kq, vq, tb, row, pos,
+                                                  kv_quant=quant)))
     for label, r in rows.items():
+        if "body" in r:
+            log(ragged_line(label, r))
+            continue
         log(f"  {label} ({r['kernel']}): {r['ms']:.4f} ms (bound "
             f"{r['bound_ms']:.4f} ms by {r['bound_by']}, plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms; "
@@ -4836,15 +4905,18 @@ def main():
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"],
                         "err_over_tol": r["err_over_tol"],
-                        **{k: r[k] for k in FLASH_STATS if k in r},
+                        **{k: r[k] for k in FLASH_STATS + RAGGED_STATS
+                           if k in r},
                         "g1": ({k: g1[name][k] for k in (
                             "ms", "plain_ms", "bound_ms", "bound_by",
-                            "library_ms", "max_abs_err", *FLASH_STATS)
+                            "library_ms", "max_abs_err", *FLASH_STATS,
+                            *RAGGED_STATS)
                             if k in g1[name]}
                             if name in g1 else None),
                         "encdec_vlm": {label: {k: r[k] for k in (
                             "ms", "plain_ms", "bound_ms", "bound_by",
-                            "library_ms", "max_abs_err", *FLASH_STATS)
+                            "library_ms", "max_abs_err", *FLASH_STATS,
+                            *RAGGED_STATS)
                             if k in r}
                             for label, r in encdec_vlm.items()
                             if r["kernel"] == name},

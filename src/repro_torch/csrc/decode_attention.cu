@@ -117,7 +117,8 @@ decode_mma_kernel(dsplit::Workspace ws, const T* __restrict__ q, const T* __rest
   if (len <= 0) return;  // past the row's end: the combine reads no partial here
   const int G = hq / hkv;
   const ContigDecodeMap mp{{ws.o, ws.m, ws.l, b, h, s, hq, G, HD, n_split, len}, S, k0, hkv};
-  dsplit::attend_split<T, HD>(mp, q, k_cache, v_cache, G, len, scale, smem_mma);
+  dsplit::attend_split<T, T, false, HD>(mp, q, k_cache, v_cache, nullptr, G, len, scale,
+                                        smem_mma);
 }
 
 template <typename T, int HD>

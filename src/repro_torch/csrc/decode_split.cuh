@@ -22,6 +22,12 @@
 // row's end are never read, so the same K/V give the same bits whatever
 // the table's width or the cache's S. No atomics: every sum is taken in
 // the same order every run.
+//
+// The ragged kernel (ragged_paged_attention.cu) runs the same body on its
+// decode runs, over bf16 pages and int8 pages (Q8: the partial's o holds
+// the zero term, mma_attention.cuh), and combines a row through
+// combine_row, so a decode row's bits over bf16 pages are the paged decode
+// kernel's.
 
 #pragma once
 
@@ -71,34 +77,31 @@ struct SplitRows {
 };
 
 // The body on one split: len (>= 1) keys of the split, G rows, the row
-// groups and key split of the body chosen by G as the ragged kernel
-// chooses them by its tile's rows.
-template <typename T, int HD, class Map>
-__device__ __forceinline__ void attend_split(const Map& mp, const T* q, const T* kp, const T* vp,
-                                             int G, int len, float scale, char* smem) {
+// groups and key split of the body chosen by G. KT, Q8, sc: the pages, as
+// mma_attention.cuh's attend takes them (T, false and null but for the
+// ragged kernel's int8 pages).
+template <typename T, typename KT, bool Q8, int HD, class Map>
+__device__ __forceinline__ void attend_split(const Map& mp, const T* q, const KT* kp,
+                                             const KT* vp, const float* const* sc, int G,
+                                             int len, float scale, char* smem) {
   using mma_attn::attend;
   if (G <= 16) {
-    attend<T, T, false, HD, 4, Map, true>(mp, q, kp, vp, nullptr, nullptr, G, len, scale, smem);
+    attend<T, KT, Q8, HD, 4, Map, true>(mp, q, kp, vp, sc, nullptr, G, len, scale, smem);
   } else if (G <= 32) {
-    attend<T, T, false, HD, 2, Map, true>(mp, q, kp, vp, nullptr, nullptr, G, len, scale, smem);
+    attend<T, KT, Q8, HD, 2, Map, true>(mp, q, kp, vp, sc, nullptr, G, len, scale, smem);
   } else {
-    attend<T, T, false, HD, 1, Map, true>(mp, q, kp, vp, nullptr, nullptr, G, len, scale, smem);
+    attend<T, KT, Q8, HD, 1, Map, true>(mp, q, kp, vp, sc, nullptr, G, len, scale, smem);
   }
 }
 
-// The second pass: one warp per (sequence, q head) row of out (B, 1, Hq,
-// HD). A row's length is kv_len[b] clamped to [0, cap] (cap: the table's
-// nb bs, or S), as the split kernel clamps it.
+// One warp writes one output row orow (HD values of QT) from its n
+// partials at po/pm/pl[p0 ..]: (sum_s o_s 2^(m_s - M)) / max(sum_s l_s
+// 2^(m_s - M), 1e-30), the sums in split order; n = 0 gives exactly 0.
 template <typename QT, int HD>
-__global__ void __launch_bounds__(32 * COMBINE_WARPS)
-decode_combine_kernel(const float* __restrict__ po, const float* __restrict__ pm,
-                      const float* __restrict__ pl, const int* __restrict__ kv_len,
-                      QT* __restrict__ out, int n_rows, int hq, int n_split, int cap) {
-  const int row = blockIdx.x * COMBINE_WARPS + threadIdx.x / 32;
-  const int lane = threadIdx.x & 31;
-  if (row >= n_rows) return;
-  const int n = n_splits(min(max(kv_len[row / hq], 0), cap));
-  const int64_t p0 = static_cast<int64_t>(row) * n_split;
+__device__ __forceinline__ void combine_row(const float* __restrict__ po,
+                                            const float* __restrict__ pm,
+                                            const float* __restrict__ pl, int64_t p0, int n,
+                                            QT* __restrict__ orow, int lane) {
   float mx = mma_attn::NEG;
   for (int s = lane; s < n; s += 32) mx = fmaxf(mx, pm[p0 + s]);
   mx = pattn::warp_max(mx);
@@ -120,10 +123,24 @@ decode_combine_kernel(const float* __restrict__ po, const float* __restrict__ pm
   const float den = fmaxf(l, 1e-30f);
 #pragma unroll
   for (int i = 0; i < PER; ++i) {
-    if (lane + 32 * i < HD) {
-      out[static_cast<int64_t>(row) * HD + lane + 32 * i] = pattn::from_f32<QT>(acc[i] / den);
-    }
+    if (lane + 32 * i < HD) orow[lane + 32 * i] = pattn::from_f32<QT>(acc[i] / den);
   }
+}
+
+// The second pass: one warp per (sequence, q head) row of out (B, 1, Hq,
+// HD). A row's length is kv_len[b] clamped to [0, cap] (cap: the table's
+// nb bs, or S), as the split kernel clamps it.
+template <typename QT, int HD>
+__global__ void __launch_bounds__(32 * COMBINE_WARPS)
+decode_combine_kernel(const float* __restrict__ po, const float* __restrict__ pm,
+                      const float* __restrict__ pl, const int* __restrict__ kv_len,
+                      QT* __restrict__ out, int n_rows, int hq, int n_split, int cap) {
+  const int row = blockIdx.x * COMBINE_WARPS + threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  if (row >= n_rows) return;
+  const int n = n_splits(min(max(kv_len[row / hq], 0), cap));
+  combine_row<QT, HD>(po, pm, pl, static_cast<int64_t>(row) * n_split, n,
+                      out + static_cast<int64_t>(row) * HD, lane);
 }
 
 // Launch the split kernel over grid (B, Hkv, n_split), then the combine.

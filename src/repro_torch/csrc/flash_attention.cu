@@ -425,39 +425,13 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-// cuTensorMapEncodeTiled, from the driver through the runtime (no libcuda
-// at link time)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult res;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                           cudaEnableDefault, &res);
-#else
-    const cudaError_t e =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res);
-#endif
-    if (e == cudaSuccess && res == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiled>(p);
-    }
-  }
-  return fn;
-}
-
 // The map of x (B, S, H, HD), 16-bit, as dims (HD, H, S, B) with a box of
 // (one swizzle line, bh heads, bs positions, 1 batch row).
 template <int HD>
 bool make_map(CUtensorMap* map, const void* x, CUtensorMapDataType dt, int B, int S_, int H,
               int bh, int bs) {
   constexpr int COLS = HD < 64 ? HD : 64;
-  const EncodeTiled enc = encoder();
+  const hopper::EncodeTiled enc = hopper::encoder();
   if (enc == nullptr) return false;
   const cuuint64_t dims[4] = {HD, static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(S_),
                               static_cast<cuuint64_t>(B)};

@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks of the flash kernel's tensor-core body
-// (flash_attention.cu): mbarriers, TMA tile loads, wgmma and its
-// shared-memory descriptors, warpgroup barriers and register reallocation,
-// as PTX.
+// Hopper (sm_90a) building blocks of the wgmma bodies of the flash kernel
+// (flash_attention.cu) and of the ragged kernel's prefill spans
+// (ragged_paged_attention.cu): mbarriers, TMA tile loads and the driver's
+// tensor-map encoder, wgmma and its shared-memory descriptors, warpgroup
+// barriers and register reallocation, as PTX.
 //
 // Layouts. A tile of 16-bit rows lives in shared memory as TMA writes it
 // with a swizzle: rows of LINE = 128, 64 or 32 bytes (64, 32 or 16
@@ -109,9 +110,44 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// The byte at which a swizzle of LINE-byte lines puts byte `off` of a tile
+// that starts on 1,024 bytes: 16-byte chunk (off >> 4) % (LINE / 16) is
+// XORed with row (off >> 7) (TMA's and wgmma's patterns, which follow
+// the shared-memory address).
+template <int LINE>
+__device__ __forceinline__ int swz(int off) {
+  return off ^ (((off >> 7) & (LINE / 16 - 1)) << 4);
+}
+
 // generic-proxy writes to shared memory before async-proxy reads (wgmma)
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no libcuda
+// at link time)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &res);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res);
+#endif
+    if (e == cudaSuccess && res == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  }
+  return fn;
 }
 
 // ---------------------------------------------------------------------------

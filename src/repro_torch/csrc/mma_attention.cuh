@@ -1,8 +1,9 @@
-// The tensor-core attention body shared by flash_attention.cu,
-// ragged_paged_attention.cu and the two decode kernels
-// (paged_decode_attention.cu, decode_attention.cu; decode_split.cuh):
-// FlashAttention-2's shape on Hopper's mma.sync tensor cores, with K/V
-// tiles brought in by cp.async.
+// The split-over-keys attention body of the decode kernels
+// (paged_decode_attention.cu, decode_attention.cu; decode_split.cuh) and of
+// the ragged kernel's decode runs (ragged_paged_attention.cu):
+// FlashAttention-2's shape on mma.sync tensor cores, with K/V tiles
+// brought in by cp.async. (Flash and the ragged kernel's prefill spans
+// run on wgmma and TMA instead: hopper.cuh.)
 //
 // A block of 4 warps owns up to 64 query rows that read one kv head (a tile
 // of query positions times the GQA group G). Warp w owns 16 of them and
@@ -20,10 +21,9 @@
 // Tile rows are HD + 8 elements apart, so the 8 rows that one ldmatrix
 // reads fall in 8 different groups of 4 banks (no bank conflicts).
 //
-// Where a block has fewer than 4 warps' worth of rows (the ragged kernel's
-// 8-token tiles: 32 rows at G 4, 16 or 8 at G 2 or 1, and decode tiles with
-// one real token), NSPLIT warps share each row group and split every
-// stage's keys between them; their partial (m, l, acc) are combined at the
+// Where a block has fewer than 4 warps' worth of rows (a decode row's G
+// query rows), NSPLIT warps share each row group and split every stage's
+// keys between them; their partial (m, l, acc) are combined at the
 // end in split order, so the sums are taken in the same order every run.
 //
 // Masking. A key at or past the tile's longest row (the rest of a last
@@ -43,6 +43,9 @@
 // row's keys, its map offsetting key positions by the split's first one,
 // and takes the unnormalised f32 state (base-2 row max m, sum l, acc o)
 // to a workspace instead of acc / l; a second pass combines the splits.
+// With Q8 the partial's o is acc + z: the zero term sum_j p_j vz_j is
+// scaled by the same 2^(m - M) as acc in the combine, so it rides in o
+// (16-bit pages write acc alone, bit for bit as before).
 //
 // int8 pages (Q8): scale and zero are per key row (token, kv head), so they
 // factor out of both products and no dequantized tile is made:
@@ -212,17 +215,39 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
+// 16 int8 codes (raw, byte i the i-th) -> 16 values of T in o, two a
+// register, exactly and without int-to-float conversions: byte b as
+// u = b ^ 0x80 = code + 128, then
+//   fp16: the half 0x64uu is 1024 + u, so (1024 + u) - 1152 = code;
+//   bf16: the float 0x4B0000uu is 2^23 + u, so (2^23 + u) - (2^23 + 128)
+//         = code, whose top 16 bits are its bf16 (|code| <= 128 fits).
+template <typename T>
+__device__ __forceinline__ void widen_codes(uint32_t (&o)[8], const uint4 raw) {
+  const uint32_t w[4] = {raw.x ^ 0x80808080u, raw.y ^ 0x80808080u, raw.z ^ 0x80808080u,
+                         raw.w ^ 0x80808080u};
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const uint32_t u = w[i / 2];
+    const int b0 = 2 * (i % 2), b1 = b0 + 1;  // the pair's bytes in u
+    if constexpr (std::is_same<T, __half>::value) {
+      const uint32_t h = __byte_perm(u, 0x64646464u, 0x5040 | b0 | (b1 << 8));
+      const __half2 v = __hsub2(*reinterpret_cast<const __half2*>(&h),
+                                __halves2half2(__ushort_as_half(0x6480u),
+                                               __ushort_as_half(0x6480u)));
+      o[i] = *reinterpret_cast<const uint32_t*>(&v);
+    } else {
+      const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 | b0)) - 8388736.f;
+      const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 | b1)) - 8388736.f;
+      o[i] = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
+    }
+  }
+}
+
 // 16 int8 codes -> 16 values of T, stored at dst (16-byte aligned)
 template <typename T>
 __device__ __forceinline__ void widen16(T* dst, const uint4 raw) {
-  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
   uint32_t o[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const uint32_t x = w[i / 2] >> (16 * (i % 2));
-    o[i] = pack<T>(static_cast<float>(static_cast<int8_t>(x & 0xffu)),
-                   static_cast<float>(static_cast<int8_t>((x >> 8) & 0xffu)));
-  }
+  widen_codes<T>(o, raw);
   uint4* d = reinterpret_cast<uint4*>(dst);
   d[0] = make_uint4(o[0], o[1], o[2], o[3]);
   d[1] = make_uint4(o[4], o[5], o[6], o[7]);
@@ -436,7 +461,6 @@ __device__ __forceinline__ void attend(const Map& mp, const QT* __restrict__ q,
   constexpr int NRW = WARPS / NSPLIT;  // row groups
   constexpr int KW = KEYS / NSPLIT;    // keys a warp takes of each stage
   static_assert(NRW * NSPLIT == WARPS && KW % 16 == 0, "split");
-  static_assert(!(PARTIAL && Q8), "partial rows carry no int8 zero term");
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int rw = warp % NRW, ks = warp / NRW;
   const int g = lane >> 2, t2 = (lane & 3) * 2;
@@ -610,8 +634,13 @@ __device__ __forceinline__ void attend(const Map& mp, const QT* __restrict__ q,
         float* orow = mp.po + p * HD;
 #pragma unroll
         for (int d = 0; d < HD / 8; ++d) {
-          *reinterpret_cast<float2*>(orow + d * 8 + t2) =
-              make_float2(st.o[d][2 * rr], st.o[d][2 * rr + 1]);
+          if constexpr (Q8) {
+            *reinterpret_cast<float2*>(orow + d * 8 + t2) =
+                make_float2(st.o[d][2 * rr] + st.z[rr], st.o[d][2 * rr + 1] + st.z[rr]);
+          } else {
+            *reinterpret_cast<float2*>(orow + d * 8 + t2) =
+                make_float2(st.o[d][2 * rr], st.o[d][2 * rr + 1]);
+          }
         }
         if ((lane & 3) == 0) {
           mp.pm[p] = st.m[rr];

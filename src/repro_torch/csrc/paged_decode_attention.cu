@@ -163,7 +163,9 @@ paged_decode_mma_kernel(dsplit::Workspace ws, const __nv_bfloat16* __restrict__ 
                           k0,
                           bs,
                           hkv};
-  dsplit::attend_split<__nv_bfloat16, HD>(mp, q, k_pages, v_pages, G, len, scale, smem_mma);
+  dsplit::attend_split<__nv_bfloat16, __nv_bfloat16, false, HD>(mp, q, k_pages, v_pages,
+                                                                 nullptr, G, len, scale,
+                                                                 smem_mma);
 }
 
 template <int HD>

@@ -147,7 +147,8 @@ def body_counts() -> Dict[str, int]:
 
 
 def reset_launch_counts():
-    for counts in _COUNTS + _BODY_COUNTS + (_fa.TILE_LAUNCHES,):
+    for counts in (_COUNTS + _BODY_COUNTS
+                   + (_fa.TILE_LAUNCHES, _ra.TILE_LAUNCHES)):
         for k in counts:
             counts[k] = 0
 

@@ -12,11 +12,19 @@ Layout contract (the runner's): ``T`` is a multiple of ``TILE_Q`` and
 runner and ``Model.prefill`` lay their ragged batches out by it. ``kv_quant`` (int8 pages' scale/zero
 pools) selects the int8 body.
 
-Two bodies, chosen by dtype in the C entry point: a bf16 q over bf16 or
-int8 pages (GQA group G <= 8) runs on the tensor cores (``mma.sync``, pages
-gathered by ``cp.async``); float32 q or pages, fp16 pages, and G > 8 run on
-the CUDA cores (f32 FMAs), so the f32 checks hold them to 1e-5.
-``BODY_LAUNCHES`` counts each body's launches apart.
+Two bodies, chosen by dtype in the C entry point. A bf16 q over bf16 or
+int8 pages (GQA group G <= 8, pages of a power of two >= 4 rows) runs on
+the tensor cores, three kernels launched side by side (programmatic
+dependent launches): the decode runs (a run of tiles with one row holding
+one real token) split over keys of ``SPLIT_KEYS`` positions and combined
+as paged decode does, the rest in spans of tiles on ``wgmma`` with K/V
+pages by TMA (64 or 128 query rows a block, reported by the launch);
+which run takes which part is decided on the device. float32 q or pages,
+fp16 pages, and G > 8 run on the CUDA cores (f32 FMAs), so the f32 checks
+hold them to 1e-5. ``BODY_LAUNCHES`` counts each body's launches apart and
+``TILE_LAUNCHES`` the tensor-core body's by its spans' rows. The split's
+f32 workspace is sized from shapes alone (``workspace_splits``): the wrapper
+reads no device data, so a launch can be captured in a CUDA graph.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.decode_attention import split_count
 from repro_torch.kernels.ref import softmax_scale
 
 TILE_Q = 8      # query tokens per block; every span is aligned to it
@@ -38,12 +47,18 @@ PAGE_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.int8)
 LAUNCHES = {"ragged_paged_attention": 0, "ragged_paged_attention_q8": 0}
 BODY_LAUNCHES = {f"{name}/{body}": 0 for name in LAUNCHES
                  for body in ("tensor_core", "cuda_core")}
+# the tensor-core body's launches by its span kernel's query rows a block
+TILE_LAUNCHES = {64: 0, 128: 0}
+# the largest split workspace a launch takes; past it the spans walk the
+# decode runs too (no split)
+SPLIT_WORKSPACE_BYTES = 64 << 20
+TC_GROUP = 8    # the tensor-core body's largest GQA group
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _QUANT_LEAVES = ("k_scale", "k_zero", "v_scale", "v_zero")   # C order
-_ARGTYPES = ([_P] * 11 + [_I] * 7 + [ctypes.c_float, _I, _I, _P,
-                                     ctypes.POINTER(_I)])
+_ARGTYPES = ([_P] * 12 + [_I] * 9 + [ctypes.c_float, _I, _I, _P]
+             + [ctypes.POINTER(_I)] * 2)
 
 
 def check_operands(q, k_pages, v_pages, tables, row, pos, kv_quant=None):
@@ -75,6 +90,12 @@ def check_operands(q, k_pages, v_pages, tables, row, pos, kv_quant=None):
         a = kv_quant[k]
         if a.dtype != torch.float32 or a.shape != k_pages.shape[:-1]:
             raise ValueError(f"{k}: want f32 {tuple(k_pages.shape[:-1])}")
+    bs = k_pages.shape[1]
+    if (q.dtype == torch.bfloat16
+            and k_pages.dtype in (torch.bfloat16, torch.int8)
+            and hq // hkv <= TC_GROUP and (bs < 4 or bs & (bs - 1))):
+        raise ValueError(f"page size {bs}: the tensor-core body takes pages "
+                         f"of a power of two >= 4 rows")
     _build.check_aligned("ragged_paged_attention", k_pages=k_pages,
                          v_pages=v_pages)
 
@@ -97,18 +118,43 @@ def ragged_paged_attention(q, k_pages, v_pages, tables, row, pos, *,
     is_q8 = kv_quant is not None
     ptrs = [quant[k].data_ptr() if is_q8 else None for k in _QUANT_LEAVES]
     out = torch.empty_like(q)
+    n_split = workspace_splits(t, hq, hd, nb * bs)
+    ws = torch.empty(_workspace_floats(t, hq, hd, n_split),
+                     dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     fn = _build.entry("ragged_paged_attention", _ARGTYPES)
-    body = ctypes.c_int(-1)
+    body, tile = ctypes.c_int(-1), ctypes.c_int(-1)
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), *ptrs,
              tables.data_ptr(), row.data_ptr(), pos.data_ptr(),
-             out.data_ptr(), t, hq, hkv, hd, nb, bs, TILE_Q,
+             out.data_ptr(), ws.data_ptr() if n_split else None, t, hq, hkv,
+             hd, nb, bs, k_pages.shape[0], TILE_Q, n_split,
              softmax_scale(hd), _build.dtype_code(q.dtype),
-             _build.dtype_code(k_pages.dtype), stream, ctypes.byref(body))
+             _build.dtype_code(k_pages.dtype), stream, ctypes.byref(body),
+             ctypes.byref(tile))
     if err:
         raise RuntimeError(f"ragged_paged_attention launch failed: CUDA "
                            f"error {err}")
     name = "ragged_paged_attention_q8" if is_q8 else "ragged_paged_attention"
     LAUNCHES[name] += 1
     BODY_LAUNCHES[f"{name}/{_build.BODIES[body.value]}"] += 1
+    if tile.value:
+        TILE_LAUNCHES[tile.value] += 1
     return out
+
+
+def _workspace_floats(t, hq, hd, n_split):
+    """The split's f32 workspace: o (T / TILE_Q, Hq, n_split, hd), then m
+    and l (T / TILE_Q, Hq, n_split) each, then each tile's decode slot and
+    key count (two int32 a tile); nothing without a split."""
+    tiles = t // TILE_Q
+    return tiles * (hq * n_split * (hd + 2) + 2) if n_split else 0
+
+
+def workspace_splits(t, hq, hd, n_keys):
+    """The split count of the decode runs' workspace, T / TILE_Q slots of
+    Hq rows: ``split_count(n_keys)`` (the table's nb * bs), or 0 (no split)
+    where the workspace would pass ``SPLIT_WORKSPACE_BYTES``. A function of
+    shapes only."""
+    n_split = split_count(n_keys)
+    size = _workspace_floats(t, hq, hd, n_split) * 4
+    return n_split if size <= SPLIT_WORKSPACE_BYTES else 0

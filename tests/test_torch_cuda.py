@@ -21,7 +21,11 @@ apart (``ops.body_counts``): bf16/fp16 operands (and int8 pages under a
 bf16 q) take the tensor cores, float32 the CUDA cores; the bf16 cases
 check which ran. The decode kernels' tensor-core bodies split each row's
 keys over blocks of ``SPLIT_KEYS`` positions, so their cases cross split
-boundaries.
+boundaries; so does the ragged kernel's on its decode runs, whose bf16
+rows must equal paged decode's bit for bit, while its prefill spans run on
+``wgmma`` with pages by TMA (64 or 128 rows a block, as the launch
+reports), so its cases also put NaN past every row's limit, mix runs
+inside a span, and replay a launch from a CUDA graph.
 Tolerances: float32 atol = rtol = 1e-5 with TF32 off (both sides sum the
 same float32 terms in another order); a bf16 output row (token, head)
 within 2^-7 of its largest |value| plus 1e-4 (one bf16 rounding moves a
@@ -163,60 +167,260 @@ def _bodies(name):
     return counts[f"{name}/tensor_core"], counts[f"{name}/cuda_core"]
 
 
+# the spans' edges: a decode row over 9 splits, a chunk whose keys wrap
+# the two-stage ring twice (5 stages), decode tiles beside prefill tiles
+# and two chunks meeting inside one span (spans of 2 tiles at G 3 or 4, 4
+# at G 2, 8 at G 1), a full tile of a chunk with no history
+EDGES = [(1100, 1), (5, 11), (300, 13), (40, 1), (0, 8), (70, 6)]
+SPECS = [MIXED, LONG, EDGES]
+SPEC_IDS = ["mixed", "long", "edges"]
+
+
+def _poison(pools, tables, specs, bs):
+    """NaN in every page slot past each request's last position (the rest
+    of its last page, its pages after that) and in the trash page (the
+    pool's last, which no table names): keys past every row's limit."""
+    for a in pools:
+        a[-1] = float("nan")
+        for r, (h, n) in enumerate(specs):
+            last = h + n - 1
+            a[tables[r, last // bs], last % bs + 1:] = float("nan")
+            for blk in range(last // bs + 1, tables.shape[1]):
+                a[tables[r, blk]] = float("nan")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kv_dtype", ["bf16", "fp16"])
 @pytest.mark.parametrize("hd,bs", [(16, 4), (32, 16), (64, 8), (128, 16)])
-@pytest.mark.parametrize("group", [1, 2, 3, 4, 8])
-@pytest.mark.parametrize("specs", [MIXED, LONG], ids=["mixed", "long"])
+@pytest.mark.parametrize("group", [1, 2, 3, 4, 7, 8])
+@pytest.mark.parametrize("specs", SPECS, ids=SPEC_IDS)
 def test_cuda_ragged_bf16_matches_plain(cuda, specs, group, hd, bs,
                                         kv_dtype):
-    """A bf16 q over bf16 pages takes the tensor-core body, over fp16 pages
-    the CUDA-core one; each output row within its limit of the float32
-    plain version, pad rows exactly 0. hd 128 runs granite's 8 kv heads.
-    A full tile at group 1 or 2 splits each stage's keys four ways, at 3
-    or 4 two ways, at 8 not at all; a decode tile always four ways."""
+    """A bf16 q over bf16 pages takes the tensor-core body (decode runs
+    split over keys, the rest in spans on wgmma), over fp16 pages the
+    CUDA-core one; each output row within its limit of the float32 plain
+    version, pad rows exactly 0. hd 128 runs granite's 8 kv heads. At G 3
+    and 7 a warpgroup's 64 rows hold spare rows; ``edges`` puts NaN past
+    every row's limit and in the trash page, after the plain version ran
+    on the clean pages."""
     hkv = 8 if hd == 128 else 2
-    q, k, v, tb, row, pos = _to(cuda, _ragged(specs, hkv * group, hkv, hd,
-                                              bs, seed=hd + group))
+    q, k, v, tb, row, pos = _ragged(specs, hkv * group, hkv, hd, bs,
+                                    seed=hd + group)
     q, k, v = q.bfloat16(), k.to(DTYPES[kv_dtype]), v.to(DTYPES[kv_dtype])
+    want = ref.ragged_paged_attention_reference(
+        *_to(cuda, (q.float(), k.float(), v.float(), tb, row, pos)))
+    if specs is EDGES:
+        _poison([k, v], tb, specs, bs)
+    q, k, v, tb, row, pos = _to(cuda, (q, k, v, tb, row, pos))
     ops.reset_launch_counts()
     got = ragged_attention.ragged_paged_attention(q, k, v, tb, row, pos)
     assert got.dtype == torch.bfloat16
     assert _bodies("ragged_paged_attention") == (
         (1, 0) if kv_dtype == "bf16" else (0, 1))
-    want = ref.ragged_paged_attention_reference(q.float(), k.float(),
-                                                v.float(), tb, row, pos)
     _assert_rows_close(got, want)
     assert bool((got[pos < 0] == 0).all())
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("q_dtype", ["f32", "bf16"])
-@pytest.mark.parametrize("hd,bs", [(16, 4), (64, 16), (128, 16)])
-@pytest.mark.parametrize("group", [1, 2, 3, 4, 8])
-@pytest.mark.parametrize("specs", [MIXED, LONG], ids=["mixed", "long"])
+@pytest.mark.parametrize("hd,bs", [(16, 4), (32, 8), (64, 16), (128, 16)])
+@pytest.mark.parametrize("group", [1, 2, 3, 4, 7, 8])
+@pytest.mark.parametrize("specs", SPECS, ids=SPEC_IDS)
 def test_cuda_ragged_int8_matches_plain(cuda, specs, group, hd, bs,
                                         q_dtype):
     """int8 pages under a float32 q take the CUDA-core body, held to
     1e-5; under a bf16 q the tensor-core body (scale and zero factored out
-    of both products), each output row within its limit of the float32
-    plain version. Pad rows exactly 0."""
-    q, k, v, tb, row, pos = _to(cuda, _ragged(specs, 2 * group, 2, hd, bs,
-                                              seed=2))
+    of both products, in the decode runs' split and in the spans alike),
+    each output row within its limit of the float32 plain version. Pad
+    rows exactly 0. ``edges`` puts NaN in the scale/zero pools past every
+    row's limit and in the trash page, after the plain version ran."""
+    q, k, v, tb, row, pos = _ragged(specs, 2 * group, 2, hd, bs, seed=2)
     kq, ks, kz = ref.quantize_kv(k)
     vq, vs, vz = ref.quantize_kv(v)
     quant = {"k_scale": ks, "k_zero": kz, "v_scale": vs, "v_zero": vz}
     q = q.to(DTYPES[q_dtype])
+    want = ref.ragged_paged_attention_reference(
+        *_to(cuda, (q.float(), kq, vq, tb, row, pos)),
+        kv_quant={n: a.to(cuda) for n, a in quant.items()})
+    if specs is EDGES:
+        _poison(list(quant.values()), tb, specs, bs)
+    q, kq, vq, tb, row, pos = _to(cuda, (q, kq, vq, tb, row, pos))
+    quant = {n: a.to(cuda) for n, a in quant.items()}
     ops.reset_launch_counts()
     got = ragged_attention.ragged_paged_attention(q, kq, vq, tb, row, pos,
                                                   kv_quant=quant)
     assert ops.launch_counts()["ragged_paged_attention_q8"] == 1
     assert _bodies("ragged_paged_attention_q8") == (
         (0, 1) if q_dtype == "f32" else (1, 0))
-    want = ref.ragged_paged_attention_reference(q.float(), kq, vq, tb, row,
-                                                pos, kv_quant=quant)
     _check(got, want, q.dtype)
     assert bool((got[pos < 0] == 0).all())
+
+
+def _ragged_int8(args):
+    """(q, k, v, tables, row, pos) with k and v quantized: the int8 pages
+    and their kv_quant pools."""
+    q, k, v, tb, row, pos = args
+    kq, ks, kz = ref.quantize_kv(k)
+    vq, vs, vz = ref.quantize_kv(v)
+    return (q, kq, vq, tb, row, pos), {"k_scale": ks, "k_zero": kz,
+                                       "v_scale": vs, "v_zero": vz}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pages", ["bf16", "int8"])
+@pytest.mark.parametrize("tile", [64, 128])
+def test_cuda_ragged_span_tile_is_reported(cuda, tile, pages):
+    """The entry point launches its spans at 64 query rows a block (one
+    consumer warpgroup) or 128 (two) and reports which; each holds the
+    plain version. granite's attention (Hq 32, Hkv 8, hd 128): a 412-token
+    chunk beside two decode rows takes 64 rows, a 1,100-token one 128."""
+    n = 412 if tile == 64 else 1100
+    args = _ragged([(0, n), (300, 1), (30, 1)], 32, 8, 128, 16, seed=tile)
+    quant = None
+    if pages == "int8":
+        args, quant = _ragged_int8(args)
+        quant = {k: a.to(cuda) for k, a in quant.items()}
+    q, k, v, tb, row, pos = _to(cuda, args)
+    q = q.bfloat16()
+    if pages == "bf16":
+        k, v = k.bfloat16(), v.bfloat16()
+    ops.reset_launch_counts()
+    got = ragged_attention.ragged_paged_attention(q, k, v, tb, row, pos,
+                                                  kv_quant=quant)
+    assert ragged_attention.TILE_LAUNCHES == {64: int(tile == 64),
+                                              128: int(tile == 128)}
+    want = ref.ragged_paged_attention_reference(
+        q.float(), k if quant else k.float(), v if quant else v.float(), tb,
+        row, pos, kv_quant=quant)
+    _assert_rows_close(got, want)
+    assert bool((got[pos < 0] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pages", ["bf16", "int8"])
+def test_cuda_ragged_without_split_matches_plain(cuda, pages, monkeypatch):
+    """Where the split's workspace would pass ``SPLIT_WORKSPACE_BYTES`` the
+    launch runs no split and the spans walk the decode runs too: the same
+    function, each row within its limit, pad rows 0."""
+    monkeypatch.setattr(ragged_attention, "SPLIT_WORKSPACE_BYTES", 0)
+    args = _ragged(EDGES, 8, 2, 64, 8, seed=7)
+    quant = None
+    if pages == "int8":
+        args, quant = _ragged_int8(args)
+        quant = {k: a.to(cuda) for k, a in quant.items()}
+    q, k, v, tb, row, pos = _to(cuda, args)
+    q = q.bfloat16()
+    if pages == "bf16":
+        k, v = k.bfloat16(), v.bfloat16()
+    got = ragged_attention.ragged_paged_attention(q, k, v, tb, row, pos,
+                                                  kv_quant=quant)
+    want = ref.ragged_paged_attention_reference(
+        q.float(), k if quant else k.float(), v if quant else v.float(), tb,
+        row, pos, kv_quant=quant)
+    _assert_rows_close(got, want)
+    assert bool((got[pos < 0] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("group", [1, 4, 8])
+def test_cuda_ragged_decode_rows_equal_paged_decode(cuda, group, hd):
+    """Over bf16 pages a decode row (the one real token of its run) takes
+    the paged decode kernel's split body and combine: its output equals
+    ``paged_decode_attention``'s bit for bit on the same pages, table rows
+    and lengths, with a 20-token chunk in the same launch (held to the
+    plain version) and pads exactly 0."""
+    lens = [1024, 777, 300, 1, KPS, KPS + 1]
+    hkv = 8 if hd == 128 else 2
+    q, k, v, tb, kl = _decode(lens, hkv * group, hkv, hd, 16,
+                              seed=31 + group)
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    rng = np.random.RandomState(group)
+    hq = hkv * group
+    # tiles: decode row 0, a chunk on row 3 (3 tiles), decode rows 1 .. 5
+    # (row 3's decode tile is two runs away from its chunk), a pad tile
+    qs, rows, poss, at = [], [], [], {}
+    for b in [0, "chunk", 1, 2, 3, 4, 5, "pad"]:
+        if b == "chunk":
+            qs.append(torch.from_numpy(rng.randn(24, hq, hd).astype(
+                np.float32)).bfloat16())
+            rows += [3] * 24
+            poss += list(range(100, 120)) + [-1] * 4
+            continue
+        tile = torch.from_numpy(rng.randn(TILE_Q, hq, hd).astype(
+            np.float32)).bfloat16()
+        rows += [0 if b == "pad" else b] * TILE_Q
+        if b == "pad":
+            poss += [-1] * TILE_Q
+        else:
+            at[b] = sum(x.shape[0] for x in qs)
+            tile[0] = q[b, 0]
+            poss += [lens[b] - 1] + [-1] * (TILE_Q - 1)
+        qs.append(tile)
+    rq = torch.cat(qs)
+    row = torch.tensor(rows, dtype=torch.int32)
+    pos = torch.tensor(poss, dtype=torch.int32)
+    q, k, v, tb, kl, rq, row, pos = _to(cuda, (q, k, v, tb, kl, rq, row,
+                                               pos))
+    paged = decode_attention.paged_decode_attention(q, k, v, tb, kl)
+    ops.reset_launch_counts()
+    got = ragged_attention.ragged_paged_attention(rq, k, v, tb, row, pos)
+    assert _bodies("ragged_paged_attention") == (1, 0)
+    for b, t in at.items():
+        assert torch.equal(got[t], paged[b, 0]), b
+    want = ref.ragged_paged_attention_reference(rq.float(), k.float(),
+                                                v.float(), tb, row, pos)
+    _assert_rows_close(got, want)
+    assert bool((got[pos < 0] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pages", ["bf16", "int8"])
+def test_cuda_ragged_graph_replay(cuda, pages):
+    """The wrapper reads no device data, so one ragged launch can be
+    captured in a ``torch.cuda.CUDAGraph``; replayed on new inputs copied
+    into the captured buffers, it equals an eager launch on them bit for
+    bit, and the plain version within each row's limit."""
+    sets = [_ragged(EDGES, 8, 2, 64, 16, seed=s) for s in (41, 42)]
+    quants = [None, None]
+    if pages == "int8":
+        sets, quants = zip(*[_ragged_int8(a) for a in sets])
+    sets = [_to(cuda, a) for a in sets]
+    for a in sets:
+        a[0] = a[0].bfloat16()
+        if pages == "bf16":
+            a[1], a[2] = a[1].bfloat16(), a[2].bfloat16()
+    quants = [None if qn is None else {k: a.to(cuda) for k, a in qn.items()}
+              for qn in quants]
+    static, squant = sets[0], quants[0]
+
+    def launch():
+        return ragged_attention.ragged_paged_attention(*static,
+                                                       kv_quant=squant)
+
+    launch()                                          # build, configure
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        launch()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = launch()
+    for dst, src in zip(static, sets[1]):
+        dst.copy_(src)
+    for k in squant or {}:
+        squant[k].copy_(quants[1][k])
+    graph.replay()
+    torch.cuda.synchronize()
+    eager = launch()
+    assert torch.equal(out, eager)
+    q, k, v, tb, row, pos = static
+    want = ref.ragged_paged_attention_reference(
+        q.float(), k if squant else k.float(), v if squant else v.float(),
+        tb, row, pos, kv_quant=squant)
+    _assert_rows_close(out, want)
+    assert bool((out[pos < 0] == 0).all())
 
 
 @pytest.mark.cuda

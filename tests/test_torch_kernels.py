@@ -553,6 +553,32 @@ def test_wkv6_constants_match_the_source():
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 
 
+@pytest.mark.parametrize("q_dtype,kv_dtype,bs,refused", [
+    (torch.bfloat16, torch.bfloat16, 6, True),
+    (torch.bfloat16, torch.int8, 2, True),
+    (torch.bfloat16, torch.bfloat16, 8, False),
+    (torch.float32, torch.float32, 6, False),
+    (torch.bfloat16, torch.float16, 6, False)])
+def test_ragged_operands_refuse_page_sizes_the_tensor_cores_do_not_take(
+        q_dtype, kv_dtype, bs, refused):
+    """The ragged kernel's tensor-core body (bf16 q over bf16 or int8 pages)
+    takes pages of a power of two >= 4 rows; the wrapper refuses any other
+    page size for it, and the CUDA-core body takes any."""
+    from repro_torch.kernels import ragged_attention as tra
+    q = torch.zeros((8, 4, 16), dtype=q_dtype)
+    pages = torch.zeros((3, bs, 2, 16), dtype=kv_dtype)
+    quant = ({k: torch.zeros((3, bs, 2)) for k in
+              ("k_scale", "k_zero", "v_scale", "v_zero")}
+             if kv_dtype == torch.int8 else None)
+    args = (q, pages, pages, torch.zeros((1, 2), dtype=torch.int32),
+            torch.zeros(8, dtype=torch.int32), torch.zeros(8, dtype=torch.int32))
+    if refused:
+        with pytest.raises(ValueError, match="page size"):
+            tra.check_operands(*args, kv_quant=quant)
+    else:
+        tra.check_operands(*args, kv_quant=quant)
+
+
 def test_reset_launch_counts_clears_flash_tiles():
     """``reset_launch_counts`` zeroes flash's launches by tile with the
     other counts, so a window reads only its own launches' tiles."""
@@ -574,7 +600,8 @@ FULL = dict(hq=32, hkv=8, hd=128, bs=16)   # granite-3-8b's attention
 
 def _emulate_mma(qs, kf, vf, mask, quant=None, rounded=True):
     """The tensor-core bodies' arithmetic (``csrc/mma_attention.cuh``, and
-    flash's ``wgmma`` body, which rounds at the same points) with the
+    the ``wgmma`` bodies of flash and the ragged kernel's spans, which round
+    at the same points) with the
     softmax taken whole: qs (Hkv,G,tr,hd), kf/vf (Hkv,1,n,hd) float
     holding bf16 values or int8 codes, mask (tr,n). 16-bit pages: P rounded
     to bf16, l summed from the rounded P. int8 pages (``quant`` = scale and
