@@ -464,6 +464,7 @@ def sdpa_flash(torch, q, k, v, causal=True):
 
 FLASH_STATS = ("tile_rows", "tflops")   # flash_stats' keys
 RAGGED_STATS = ("body", "tile_rows")    # ragged_stats' keys
+DECODE_STATS = ("cluster", "partials")  # decode_stats' keys
 
 
 def ragged_stats(torch, launch):
@@ -481,6 +482,20 @@ def ragged_stats(torch, launch):
         raise RuntimeError(f"ragged: one launch moved bodies {body}, "
                            f"tiles {took}")
     return {"body": body[0], "tile_rows": took[0] if took else 0}
+
+
+def decode_stats(torch, name, launch):
+    """The cluster size (blocks a sequence and kv head) that one call of
+    ``launch`` of decode kernel ``name`` took on its tensor-core body, as
+    the C entry point reports it, and where its partials went (the f32
+    workspace: ``LAST_LAUNCH``)."""
+    from repro_torch.kernels import decode_attention as kda
+    kda.LAST_LAUNCH[name] = None
+    launch()
+    last = kda.LAST_LAUNCH[name]
+    if last is None:
+        raise RuntimeError(f"{name}: no tensor-core launch reported")
+    return dict(last)
 
 
 def ragged_line(label, r):
@@ -685,6 +700,11 @@ def kernel_phase(torch, quick):
                            reps, flush=flush),
         bound_ms=b_ms, bound_by=b_by, max_abs_err=err[0],
         err_over_tol=err[1])
+    rows["paged_decode_attention"].update(decode_stats(
+        torch, "paged_decode_attention",
+        lambda: kda.paged_decode_attention(qd, kd_, vd, tbd, kl)))
+    log(f"  paged decode (kv_len 1024/777/300/1): "
+        f"{rows['paged_decode_attention']}")
 
     # -- flash attention over contiguous K/V: f32 at hd 16 (TF32 off), then
     # the main path's prefills (batch 1, causal, Sq = Sk = a prompt)
@@ -765,6 +785,11 @@ def kernel_phase(torch, quick):
                            reps, flush=flush),
         bound_ms=b_ms, bound_by=b_by, max_abs_err=err[0],
         err_over_tol=err[1])
+    rows["decode_attention"].update(decode_stats(
+        torch, "decode_attention",
+        lambda: kda.decode_attention(qd, kc, vc, kl)))
+    log(f"  contiguous decode (kv_len 1024/777/300/1, S 1024): "
+        f"{rows['decode_attention']}")
 
     decode_shape_phase(torch, reps, flush)
 
@@ -836,7 +861,8 @@ def decode_shape_phase(torch, reps, flush):
                              library_ms=time_ms(torch, lib, reps,
                                                 flush=flush),
                              bound_ms=b_ms, bound_by=b_by,
-                             max_abs_err=err[0], err_over_tol=err[1])
+                             max_abs_err=err[0], err_over_tol=err[1],
+                             **decode_stats(torch, name, fn))
             log(f"  {name} at the {shape} decode shape (kv_len "
                 f"{'/'.join(map(str, lens))}): {res[name]}")
         out[shape] = {"kv_len": lens, "kernels": res}
@@ -2469,6 +2495,9 @@ def g1_kernel_phase(torch, reps, flush):
             vp.float() if f32 else vp, tbd, kl),
         sdpa_decode(torch, qd, kp, vp, tbd, kl),
         dec_bytes + tbd.numel() * 4, dec_flops)
+    rows["paged_decode_attention"].update(decode_stats(
+        torch, "paged_decode_attention",
+        lambda: kda.paged_decode_attention(qd, kp, vp, tbd, kl)))
 
     qf, kf, vf = (torch.randn((1, 412, h, HD), generator=g, device="cuda")
                   .bfloat16() for _ in range(3))
@@ -2491,11 +2520,16 @@ def g1_kernel_phase(torch, reps, flush):
         lambda f32: ref.decode_attention_reference(
             *(a.float() if f32 else a for a in (qd, kc, vc)), kl),
         sdpa_contig_decode(torch, qd, kc, vc, kl), dec_bytes, dec_flops)
+    rows["decode_attention"].update(decode_stats(
+        torch, "decode_attention",
+        lambda: kda.decode_attention(qd, kc, vc, kl)))
     for name, r in rows.items():
         tile = (f", tile {r['tile_rows']} rows, {r['tflops']:.1f} TFLOP/s"
                 if "tflops" in r else
                 f", {r['body']} body, span tile {r['tile_rows']} rows"
-                if "body" in r else "")
+                if "body" in r else
+                f", clusters of {r['cluster']}, partials in "
+                f"{r['partials']}" if "cluster" in r else "")
         log(f"  G=1 {name}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms "
             f"by {r['bound_by']}, plain {r['plain_ms']:.4f} ms, library "
             f"{r['library_ms']:.4f} ms; without the hold "
@@ -4906,11 +4940,11 @@ def main():
                         "library_ms": r["library_ms"],
                         "err_over_tol": r["err_over_tol"],
                         **{k: r[k] for k in FLASH_STATS + RAGGED_STATS
-                           if k in r},
+                           + DECODE_STATS if k in r},
                         "g1": ({k: g1[name][k] for k in (
                             "ms", "plain_ms", "bound_ms", "bound_by",
                             "library_ms", "max_abs_err", *FLASH_STATS,
-                            *RAGGED_STATS)
+                            *RAGGED_STATS, *DECODE_STATS)
                             if k in g1[name]}
                             if name in g1 else None),
                         "encdec_vlm": {label: {k: r[k] for k in (

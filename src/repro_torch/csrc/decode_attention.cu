@@ -13,13 +13,17 @@
 // What bounds it: the bytes of K/V read, each row once per kv head; but at
 // granite-3-8b batch 4 one block per (sequence, kv head) is only 32 blocks
 // on 132 SMs, and one block's serial walk would set the time, as for the
-// paged kernel. Two bodies, as there:
+// paged kernel; at these sizes the walk's latency and launches cost more
+// than its bytes. Two bodies, as there:
 //
-// - tensor cores (decode_mma_kernel), for bf16 and fp16 caches with
-//   G = Hq / Hkv <= 64: the walk split over blocks of KPS positions and
-//   combined in a second pass (decode_split.cuh), each split on the body of
-//   flash and ragged attention (mma_attention.cuh); a split's keys are rows
-//   b S + k0 + kpos of the cache.
+// - tensor cores (decode_split.cuh's decode_cluster_kernel), for bf16 and
+//   fp16 caches with G = Hq / Hkv <= 64: the paged kernel's one launch, its
+//   walk split over blocks of KPS positions, a cluster of C = min(8,
+//   ceil(S / KPS)) blocks a (sequence, kv head) that combines the splits
+//   before the launch ends; a split's K and V come by TMA from the strip,
+//   boxes of 16 rows (rows past S zero-filled), and its products
+//   run on mma.sync (mma_attention.cuh's fold), so its bits are the paged
+//   kernel's on the same keys.
 // - CUDA cores (decode_kernel), for f32: one block per (sequence, kv head),
 //   a loop over tiles of KB rows widened to f32 that stops at kv_len[b]
 //   (paged_attention_common.cuh's tile loader and online softmax). The f32
@@ -94,58 +98,61 @@ cudaError_t by_hd(int hd, const void* q, const void* kc, const void* vc, const i
 }
 
 // ---------------------------------------------------------------------------
-// the tensor-core body, split over keys
+// the tensor-core body: one cluster launch (decode_split.cuh)
 // ---------------------------------------------------------------------------
 
-// Split (b, h, s): key kpos is cache row b S + k0 + kpos.
-struct ContigDecodeMap : dsplit::SplitRows {
-  int S, k0, hkv;
-  __device__ __forceinline__ int64_t key(int kpos) const {
-    return (static_cast<int64_t>(b) * S + k0 + kpos) * hkv + h;
-  }
-};
+// Rows of a strip a TMA box: a stage is four boxes (tools/decode_probe.py:
+// at granite's decode shapes 16-row boxes beat one 64-row box a stage).
+constexpr int BOX_LOG2 = 4;
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(mma_attn::THREADS)
-decode_mma_kernel(dsplit::Workspace ws, const T* __restrict__ q, const T* __restrict__ k_cache,
-                  const T* __restrict__ v_cache, const int* __restrict__ kv_len, int S, int hq,
-                  int hkv, int n_split, float scale) {
-  extern __shared__ __align__(128) char smem_mma[];
-  const int b = blockIdx.x, h = blockIdx.y, s = blockIdx.z;
-  const int k0 = s * dsplit::KPS;
-  const int len = min(min(max(kv_len[b], 0), S) - k0, dsplit::KPS);
-  if (len <= 0) return;  // past the row's end: the combine reads no partial here
-  const int G = hq / hkv;
-  const ContigDecodeMap mp{{ws.o, ws.m, ws.l, b, h, s, hq, G, HD, n_split, len}, S, k0, hkv};
-  dsplit::attend_split<T, T, false, HD>(mp, q, k_cache, v_cache, nullptr, G, len, scale,
-                                        smem_mma);
-}
+// Position p of sequence b: row p of its strip, in the caches' map (HD,
+// Hkv, S, B).
+struct ContigSrc {
+  __device__ __forceinline__ int page(int b, int) const { return b; }
+  __device__ __forceinline__ int row(int p) const { return p; }
+};
 
 template <typename T, int HD>
 cudaError_t launch_mma(const void* q, const void* kc, const void* vc, const int* kv_len,
                        void* out, void* ws, int B, int S, int hq, int hkv, int n_split,
-                       float scale, cudaStream_t stream) {
-  static size_t configured = 0;
-  return dsplit::launch<T, HD>(decode_mma_kernel<T, HD>, &configured,
-                               dsplit::carve(ws, B, hq, n_split, HD), kv_len, out, B, hq, hkv,
-                               n_split, S, stream, static_cast<const T*>(q),
-                               static_cast<const T*>(kc), static_cast<const T*>(vc), kv_len, S,
-                               hq, hkv, n_split, scale);
+                       int cluster, float scale, cudaStream_t stream, int* launched) {
+  dsplit::Args a{};
+  a.q = q;
+  a.out = out;
+  a.kv_len = kv_len;
+  a.ws = dsplit::carve(ws, B, hq, n_split, HD);
+  a.hq = hq;
+  a.hkv = hkv;
+  a.n_split = n_split;
+  a.cap = S;
+  a.lh = BOX_LOG2;
+  a.ls = BOX_LOG2;
+  a.scale = scale;
+  CUtensorMap km{}, vm{};
+  if (n_split > 0 && (!dsplit::make_kv_map<T, HD>(&km, kc, hkv, S, B, 1 << a.lh) ||
+                      !dsplit::make_kv_map<T, HD>(&vm, vc, hkv, S, B, 1 << a.lh))) {
+    return cudaErrorInvalidValue;
+  }
+  return dsplit::launch_cluster<T, HD>(km, vm, ContigSrc{}, a, B, cluster, launched, stream);
 }
 
 template <typename T>
 cudaError_t mma_by_hd(int hd, const void* q, const void* kc, const void* vc, const int* kv_len,
                       void* out, void* ws, int B, int S, int hq, int hkv, int n_split,
-                      float scale, cudaStream_t st) {
+                      int cluster, float scale, cudaStream_t st, int* launched) {
   switch (hd) {
     case 16:
-      return launch_mma<T, 16>(q, kc, vc, kv_len, out, ws, B, S, hq, hkv, n_split, scale, st);
+      return launch_mma<T, 16>(q, kc, vc, kv_len, out, ws, B, S, hq, hkv, n_split, cluster,
+                               scale, st, launched);
     case 32:
-      return launch_mma<T, 32>(q, kc, vc, kv_len, out, ws, B, S, hq, hkv, n_split, scale, st);
+      return launch_mma<T, 32>(q, kc, vc, kv_len, out, ws, B, S, hq, hkv, n_split, cluster,
+                               scale, st, launched);
     case 64:
-      return launch_mma<T, 64>(q, kc, vc, kv_len, out, ws, B, S, hq, hkv, n_split, scale, st);
+      return launch_mma<T, 64>(q, kc, vc, kv_len, out, ws, B, S, hq, hkv, n_split, cluster,
+                               scale, st, launched);
     case 128:
-      return launch_mma<T, 128>(q, kc, vc, kv_len, out, ws, B, S, hq, hkv, n_split, scale, st);
+      return launch_mma<T, 128>(q, kc, vc, kv_len, out, ws, B, S, hq, hkv, n_split, cluster,
+                                scale, st, launched);
     default:
       return cudaErrorInvalidValue;
   }
@@ -155,25 +162,30 @@ cudaError_t mma_by_hd(int hd, const void* q, const void* kc, const void* vc, con
 
 // C entry point bound with ctypes (kernels/decode_attention.py): q, the caches
 // and out share one dtype. ws: the tensor-core body's f32 workspace of
-// B x Hq x n_split x (hd + 2) floats, n_split = ceil(S / KPS)
-// (decode_split.cuh); the CUDA-core body leaves it alone. *body is set to the
-// body launched: 1 the tensor cores, 0 the CUDA cores. Returns the launch's
-// cudaGetLastError() (0 = launched).
+// B x Hq x n_split x (hd + 2) floats, its partials, n_split = ceil(S / KPS)
+// (decode_split.cuh); the CUDA-core body leaves it alone. cluster: the most
+// blocks a (sequence, kv head) of the tensor-core launch, in [1, 16] (the
+// wrapper's min(8, n_split), at least 1). *launched is set to the cluster
+// size the tensor-core launch took (0 for the CUDA-core body), *body to the
+// body launched: 1 the tensor cores, 0 the CUDA cores. Returns the
+// launch's error, else its cudaGetLastError() (0 = launched).
 extern "C" int decode_attention(const void* q, const void* k_cache, const void* v_cache,
                                 const void* kv_len, void* out, void* ws, int B, int S, int hq,
                                 int hkv, int hd, int n_split, float scale, int dtype,
-                                void* stream, int* body) {
+                                int cluster, void* stream, int* launched, int* body) {
   const int* kl = static_cast<const int*>(kv_len);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool mma = (dtype == BF16 || dtype == F16) && hq / hkv <= mma_attn::ROWS;
   *body = mma ? 1 : 0;
+  *launched = 0;
   if (B == 0) return 0;
   if (mma) {
     if (n_split != dsplit::n_splits(S)) return cudaErrorInvalidValue;
-    return dtype == BF16 ? mma_by_hd<__nv_bfloat16>(hd, q, k_cache, v_cache, kl, out, ws, B, S,
-                                                    hq, hkv, n_split, scale, st)
-                         : mma_by_hd<__half>(hd, q, k_cache, v_cache, kl, out, ws, B, S, hq, hkv,
-                                             n_split, scale, st);
+    return dtype == BF16
+               ? mma_by_hd<__nv_bfloat16>(hd, q, k_cache, v_cache, kl, out, ws, B, S, hq, hkv,
+                                          n_split, cluster, scale, st, launched)
+               : mma_by_hd<__half>(hd, q, k_cache, v_cache, kl, out, ws, B, S, hq, hkv,
+                                   n_split, cluster, scale, st, launched);
   }
   switch (dtype) {
     case F32:

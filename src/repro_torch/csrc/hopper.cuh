@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks of the wgmma bodies of the flash kernel
 // (flash_attention.cu) and of the ragged kernel's prefill spans
-// (ragged_paged_attention.cu): mbarriers, TMA tile loads and the driver's
-// tensor-map encoder, wgmma and its shared-memory descriptors, warpgroup
-// barriers and register reallocation, as PTX.
+// (ragged_paged_attention.cu), and of the decode kernels' cluster launch
+// (decode_split.cuh): mbarriers, TMA tile loads and the driver's
+// tensor-map encoder, cluster barriers and launches with attributes,
+// wgmma and its shared-memory descriptors,
+// warpgroup barriers and register reallocation, as PTX.
 //
 // Layouts. A tile of 16-bit rows lives in shared memory as TMA writes it
 // with a swizzle: rows of LINE = 128, 64 or 32 bytes (64, 32 or 16
@@ -148,6 +150,75 @@ inline EncodeTiled encoder() {
     }
   }
   return fn;
+}
+
+// ---------------------------------------------------------------------------
+// thread block clusters
+// ---------------------------------------------------------------------------
+
+// Every thread of every block of the cluster arrives (release: its earlier
+// writes, to shared or global memory, are seen by whoever waits), then
+// waits for all of them (acquire). A block must reach both, whatever its
+// work, or its cluster never passes.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Launch `kernel` with cudaLaunchKernelEx: as the programmatic dependent of
+// the kernel before it on the stream when `pdl` (it may start while that
+// one runs), and in clusters of `cluster` blocks along x when `cluster` >
+// 0. Returns the launch's error, else cudaGetLastError().
+template <typename Kernel, typename... Args>
+cudaError_t launch_ex(Kernel kernel, dim3 grid, int threads, size_t smem, cudaStream_t st,
+                      bool pdl, int cluster, Args... args) {
+  cudaLaunchAttribute attr[2];
+  int n = 0;
+  if (pdl) {
+    attr[n].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[n].val.programmaticStreamSerializationAllowed = 1;
+    ++n;
+  }
+  if (cluster > 0) {
+    attr[n].id = cudaLaunchAttributeClusterDimension;
+    attr[n].val.clusterDim.x = cluster;
+    attr[n].val.clusterDim.y = 1;
+    attr[n].val.clusterDim.z = 1;
+    ++n;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = n;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+// How many clusters of `cluster` blocks of `threads` threads and `smem`
+// bytes of dynamic shared memory the card can hold at once (0: none fits,
+// and a launch would fail). A failed query's error is cleared, so it does
+// not surface at the next launch's cudaGetLastError().
+template <typename Kernel>
+cudaError_t max_clusters(Kernel kernel, dim3 grid, int threads, size_t smem, int cluster,
+                         int* n) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  *n = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveClusters(n, kernel, &cfg);
+  if (e != cudaSuccess) cudaGetLastError();
+  return e;
 }
 
 // ---------------------------------------------------------------------------

@@ -1,9 +1,11 @@
-// The split-over-keys attention body of the decode kernels
-// (paged_decode_attention.cu, decode_attention.cu; decode_split.cuh) and of
-// the ragged kernel's decode runs (ragged_paged_attention.cu):
+// The split-over-keys attention body of the ragged kernel's decode runs
+// (ragged_paged_attention.cu, through decode_split.cuh's attend_split):
 // FlashAttention-2's shape on mma.sync tensor cores, with K/V tiles
-// brought in by cp.async. (Flash and the ragged kernel's prefill spans
-// run on wgmma and TMA instead: hopper.cuh.)
+// brought in by cp.async. Its per-stage step, fold, is also the product
+// of the decode kernels (paged_decode_attention.cu, decode_attention.cu),
+// whose stages come by TMA instead (decode_split.cuh's cluster launch);
+// flash and the ragged kernel's prefill spans run on wgmma and TMA
+// (hopper.cuh).
 //
 // A block of 4 warps owns up to 64 query rows that read one kv head (a tile
 // of query positions times the GQA group G). Warp w owns 16 of them and
@@ -39,10 +41,11 @@
 // Rounding: P is rounded to the PV operand type and l sums the rounded P,
 // so numerator and denominator see the same probabilities.
 //
-// Partial rows (PARTIAL): a decode kernel runs the body on one split of a
-// row's keys, its map offsetting key positions by the split's first one,
-// and takes the unnormalised f32 state (base-2 row max m, sum l, acc o)
-// to a workspace instead of acc / l; a second pass combines the splits.
+// Partial rows (PARTIAL): the ragged kernel's decode runs take the body
+// on one split of a row's keys, the map offsetting key positions by the
+// split's first one, and write the unnormalised f32 state (base-2 row max
+// m, sum l, acc o) to a workspace instead of acc / l; a second pass
+// combines the splits.
 // With Q8 the partial's o is acc + z: the zero term sum_j p_j vz_j is
 // scaled by the same 2^(m - M) as acc in the combine, so it rides in o
 // (16-bit pages write acc alone, bit for bit as before).
@@ -331,6 +334,17 @@ __device__ __forceinline__ void widen_stage(const char* raw, __nv_bfloat16* kc, 
   }
 }
 
+// Where key row k, columns [c, c + 8) of a 16-bit K or V tile lie in
+// shared memory: tiles of this body are KEYS rows LDS elements apart (the
+// decode kernels' TMA stages use their own layout, decode_split.cuh).
+template <int HD>
+struct PaddedTile {
+  template <typename T>
+  __device__ __forceinline__ const T* at(const T* tile, int k, int c) const {
+    return tile + k * Layout<HD>::LDS + c;
+  }
+};
+
 // The running softmax state of a thread's two rows (g and g + 8 of its
 // warp's 16): max m, sum l, the int8 zero term z, and the accumulator
 // o[n] = columns 8 n + t2 + {0, 1} of row g (o[n][0..1]) and g + 8 (2..3).
@@ -342,15 +356,15 @@ struct RowState {
 
 // Fold keys [key0, key0 + KW) of a stage (kv positions kpos0 + key) into
 // the warp's rows. QKT: the QK operand type (K tile); PVT: the PV operand
-// type (V tile). sc: Q8's scale/zero arrays of the stage (KEYS each).
-// Scores are kept in base 2 (scale2 = softmax scale * log2 e, exp2f), so
-// m is the row max of score * log2 e.
-template <typename QKT, typename PVT, bool Q8, int HD, int KW>
+// type (V tile); tl: where a tile's rows lie (PaddedTile, or the decode
+// kernels' TMA layout). sc: Q8's scale/zero arrays of the stage (KEYS
+// each). Scores are kept in base 2 (scale2 = softmax scale * log2 e,
+// exp2f), so m is the row max of score * log2 e.
+template <typename QKT, typename PVT, bool Q8, int HD, int KW, class Tile>
 __device__ __forceinline__ void fold(RowState<HD>& st, const uint32_t (&qf)[HD / 16][4],
                                      const float (&qsum)[2], const QKT* kt, const PVT* vt,
                                      const float* sc, int key0, int kpos0, const int (&vlen)[2],
-                                     float scale2) {
-  constexpr int LDS = Layout<HD>::LDS;
+                                     float scale2, const Tile& tl) {
   constexpr int NT = KW / 8;
   const int lane = threadIdx.x & 31;
   const int t2 = (lane & 3) * 2;
@@ -360,11 +374,11 @@ __device__ __forceinline__ void fold(RowState<HD>& st, const uint32_t (&qf)[HD /
   for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
   for (int n = 0; n < NT; n += 2) {
-    const QKT* kr = kt + (key0 + (n + (lane >> 4)) * 8 + (lane & 7)) * LDS + ((lane >> 3) & 1) * 8;
+    const int kr = key0 + (n + (lane >> 4)) * 8 + (lane & 7);
 #pragma unroll
     for (int kb = 0; kb < HD / 16; ++kb) {
       uint32_t b[4];
-      ldsm4(b, kr + kb * 16);
+      ldsm4(b, tl.at(kt, kr, ((lane >> 3) & 1) * 8 + kb * 16));
       mma<QKT>(s[n], qf[kb], b[0], b[1]);
       mma<QKT>(s[n + 1], qf[kb], b[2], b[3]);
     }
@@ -431,11 +445,11 @@ __device__ __forceinline__ void fold(RowState<HD>& st, const uint32_t (&qf)[HD /
 #pragma unroll
   for (int kk = 0; kk < KW / 16; ++kk) {
     const uint32_t a[4] = {p[2 * kk][0], p[2 * kk][1], p[2 * kk + 1][0], p[2 * kk + 1][1]};
-    const PVT* vr = vt + (key0 + kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LDS + (lane >> 4) * 8;
+    const int vr = key0 + kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7);
 #pragma unroll
     for (int dp = 0; dp < HD / 16; ++dp) {
       uint32_t b[4];
-      ldsm4t(b, vr + dp * 16);
+      ldsm4t(b, tl.at(vt, vr, (lane >> 4) * 8 + dp * 16));
       mma<PVT>(st.o[2 * dp], a, b[0], b[1]);
       mma<PVT>(st.o[2 * dp + 1], a, b[2], b[3]);
     }
@@ -556,7 +570,8 @@ __device__ __forceinline__ void attend(const Map& mp, const QT* __restrict__ q,
       vt = reinterpret_cast<const PVT*>(cur + L::TILE16);
     }
     if (i * KEYS + ks * KW < vmax) {
-      fold<QKT, PVT, Q8, HD, KW>(st, qf, qsum, kt, vt, scs, ks * KW, i * KEYS, vlen, scale2);
+      fold<QKT, PVT, Q8, HD, KW>(st, qf, qsum, kt, vt, scs, ks * KW, i * KEYS, vlen, scale2,
+                                 PaddedTile<HD>{});
     }
   }
   cp_wait<0>();

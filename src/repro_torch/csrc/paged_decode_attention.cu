@@ -8,21 +8,32 @@
 // kv_len[b] positions. Table entries past kv_len may name any valid page;
 // they are never read.
 //
-// What bounds it: the bytes of K/V read, each page once per kv head. But a
-// decode step has one query row per (sequence, q head), so B x Hkv blocks
-// (32 at granite-3-8b batch 4, on 132 SMs) that each walk a whole span
-// alone would leave the card's memory rate unused: a block's serial walk
-// over its pages would set the time. Two bodies:
+// What bounds it: the bytes of K/V read, each page once per kv head (8.6
+// MB at granite-3-8b batch 4 and kv_len 1,024/777/300/1: 0.0026 ms at
+// 3.35 TB/s). But a decode step has one query row per (sequence, q head),
+// so B x Hkv blocks (32 at granite batch 4, on 132 SMs) that each walk a
+// whole span alone would leave the card's memory rate unused: a block's
+// serial walk over its pages would set the time, and at these sizes the
+// walk's latency (table reads, loads, launches) costs more than its bytes.
+// Two bodies:
 //
-// - tensor cores (paged_decode_mma_kernel), for a bf16 q over bf16 pages
-//   with G = Hq / Hkv <= 64: the walk is split over blocks
-//   (decode_split.cuh). Block (b, h, s) takes kv positions
-//   [s KPS, (s + 1) KPS) of sequence b, reads their page ids from its table
-//   row, and runs the body of flash and ragged attention
-//   (mma_attention.cuh: cp.async stages of 64 keys, QK and PV on
-//   mma.sync, the four warps splitting each stage's keys for G <= 16); a
-//   combine pass adds the splits' partials in split order. At granite
-//   batch 4 and kv_len up to 1,024 that is up to 8 splits, 256 blocks.
+// - tensor cores (decode_split.cuh's decode_cluster_kernel), for a bf16 q
+//   over bf16 pages with G = Hq / Hkv <= 64: the walk is split over blocks
+//   of KPS = 128 positions, and the blocks of one (sequence, kv head) form
+//   a cluster of C = min(8, ceil(nb bs / KPS)) blocks, each walking every
+//   C-th split, that combines the splits' partials in split order before
+//   the launch ends: one launch, no second kernel and no launch gap. A
+//   block reads its row's length and first split's page ids together,
+//   then brings the split's K and V by TMA, one box a page (or a
+//   power-of-two part of one, so no box crosses a page) into a two-stage
+//   mbarrier ring; all of a split is in flight before its first product.
+//   The products stay on mma.sync (mma_attention.cuh's fold): with G <= 16
+//   query rows a block the tensor cores are a few percent of a split's
+//   time, what bounds it is latency, and their arithmetic keeps the bits of
+//   the ragged kernel's decode runs, which run the same split and combine
+//   in two kernels. At granite batch 4 under the engine's table of 65
+//   pages that is clusters of 8, 256 blocks, of which those past a row's
+//   end only wait at the cluster barrier.
 // - CUDA cores (paged_decode_kernel), for f32 q or pages and fp16 pages
 //   under a bf16 q: one block per (sequence, kv head) with the G query
 //   rows; the TPU grid's page axis is a loop inside the block over
@@ -131,72 +142,66 @@ cudaError_t by_kv(int kv_dtype, int hd, const void* q, const void* kp, const voi
 }
 
 // ---------------------------------------------------------------------------
-// the tensor-core body, split over keys
+// the tensor-core body: one cluster launch (decode_split.cuh)
 // ---------------------------------------------------------------------------
 
-// Split (b, h, s): key kpos is position k0 + kpos of sequence b, slot
-// (k0 + kpos) % bs of page trow[(k0 + kpos) / bs].
-struct PagedDecodeMap : dsplit::SplitRows {
-  const int* trow;
-  int k0, bs, hkv;
-  __device__ __forceinline__ int64_t key(int kpos) const {
-    const int p = k0 + kpos;
-    return (static_cast<int64_t>(trow[p / bs]) * bs + p % bs) * hkv + h;
+// Position p of sequence b: slot p % bs of page tables[b][p / bs], in the
+// pool's map (HD, Hkv, bs, N).
+struct PagedSrc {
+  const int* tables;
+  int nb, bs;
+  __device__ __forceinline__ int page(int b, int p) const {
+    return tables[static_cast<int64_t>(b) * nb + p / bs];
   }
+  __device__ __forceinline__ int row(int p) const { return p % bs; }
 };
-
-template <int HD>
-__global__ void __launch_bounds__(mma_attn::THREADS)
-paged_decode_mma_kernel(dsplit::Workspace ws, const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ k_pages,
-                        const __nv_bfloat16* __restrict__ v_pages,
-                        const int* __restrict__ tables, const int* __restrict__ kv_len, int hq,
-                        int hkv, int nb, int bs, int n_split, float scale) {
-  extern __shared__ __align__(128) char smem_mma[];
-  const int b = blockIdx.x, h = blockIdx.y, s = blockIdx.z;
-  const int k0 = s * dsplit::KPS;
-  const int len = min(min(max(kv_len[b], 0), nb * bs) - k0, dsplit::KPS);
-  if (len <= 0) return;  // past the row's end: the combine reads no partial here
-  const int G = hq / hkv;
-  const PagedDecodeMap mp{{ws.o, ws.m, ws.l, b, h, s, hq, G, HD, n_split, len},
-                          tables + static_cast<int64_t>(b) * nb,
-                          k0,
-                          bs,
-                          hkv};
-  dsplit::attend_split<__nv_bfloat16, __nv_bfloat16, false, HD>(mp, q, k_pages, v_pages,
-                                                                 nullptr, G, len, scale,
-                                                                 smem_mma);
-}
 
 template <int HD>
 cudaError_t launch_mma(const void* q, const void* k_pages, const void* v_pages,
                        const int* tables, const int* kv_len, void* out, void* ws, int B, int hq,
-                       int hkv, int nb, int bs, int n_split, float scale, cudaStream_t stream) {
+                       int hkv, int nb, int bs, int n_pages, int n_split, int cluster, float scale,
+                       cudaStream_t stream, int* launched) {
   using T = __nv_bfloat16;
-  static size_t configured = 0;
-  return dsplit::launch<T, HD>(paged_decode_mma_kernel<HD>, &configured,
-                               dsplit::carve(ws, B, hq, n_split, HD), kv_len, out, B, hq, hkv,
-                               n_split, nb * bs, stream, static_cast<const T*>(q),
-                               static_cast<const T*>(k_pages), static_cast<const T*>(v_pages),
-                               tables, kv_len, hq, hkv, nb, bs, n_split, scale);
+  dsplit::Args a{};
+  a.q = q;
+  a.out = out;
+  a.kv_len = kv_len;
+  a.ws = dsplit::carve(ws, B, hq, n_split, HD);
+  a.hq = hq;
+  a.hkv = hkv;
+  a.n_split = n_split;
+  a.cap = nb * bs;
+  a.lh = dsplit::box_log2(bs);
+  a.ls = a.lh;
+  while ((1 << a.ls) < dsplit::TmaTile<HD>::MINROWS) ++a.ls;
+  a.scale = scale;
+  CUtensorMap km{}, vm{};
+  if (n_split > 0 &&
+      (!dsplit::make_kv_map<T, HD>(&km, k_pages, hkv, bs, n_pages, 1 << a.lh) ||
+       !dsplit::make_kv_map<T, HD>(&vm, v_pages, hkv, bs, n_pages, 1 << a.lh))) {
+    return cudaErrorInvalidValue;
+  }
+  return dsplit::launch_cluster<T, HD>(km, vm, PagedSrc{tables, nb, bs}, a, B, cluster, launched,
+                                       stream);
 }
 
 cudaError_t mma_by_hd(int hd, const void* q, const void* kp, const void* vp, const int* tables,
                       const int* kv_len, void* out, void* ws, int B, int hq, int hkv, int nb,
-                      int bs, int n_split, float scale, cudaStream_t st) {
+                      int bs, int n_pages, int n_split, int cluster, float scale, cudaStream_t st,
+                      int* launched) {
   switch (hd) {
     case 16:
-      return launch_mma<16>(q, kp, vp, tables, kv_len, out, ws, B, hq, hkv, nb, bs, n_split,
-                            scale, st);
+      return launch_mma<16>(q, kp, vp, tables, kv_len, out, ws, B, hq, hkv, nb, bs, n_pages,
+                            n_split, cluster, scale, st, launched);
     case 32:
-      return launch_mma<32>(q, kp, vp, tables, kv_len, out, ws, B, hq, hkv, nb, bs, n_split,
-                            scale, st);
+      return launch_mma<32>(q, kp, vp, tables, kv_len, out, ws, B, hq, hkv, nb, bs, n_pages,
+                            n_split, cluster, scale, st, launched);
     case 64:
-      return launch_mma<64>(q, kp, vp, tables, kv_len, out, ws, B, hq, hkv, nb, bs, n_split,
-                            scale, st);
+      return launch_mma<64>(q, kp, vp, tables, kv_len, out, ws, B, hq, hkv, nb, bs, n_pages,
+                            n_split, cluster, scale, st, launched);
     case 128:
-      return launch_mma<128>(q, kp, vp, tables, kv_len, out, ws, B, hq, hkv, nb, bs, n_split,
-                             scale, st);
+      return launch_mma<128>(q, kp, vp, tables, kv_len, out, ws, B, hq, hkv, nb, bs, n_pages,
+                             n_split, cluster, scale, st, launched);
     default:
       return cudaErrorInvalidValue;
   }
@@ -206,24 +211,30 @@ cudaError_t mma_by_hd(int hd, const void* q, const void* kp, const void* vp, con
 
 // C entry point bound with ctypes (kernels/decode_attention.py). ws: the
 // tensor-core body's f32 workspace of B x Hq x n_split x (hd + 2) floats,
-// n_split = ceil(nb bs / KPS) (decode_split.cuh); the CUDA-core body
-// leaves it alone. *body is set to the body launched: 1 the tensor cores,
-// 0 the CUDA cores. Returns the launch's cudaGetLastError() (0 = launched).
+// its partials, n_split = ceil(nb bs / KPS) (decode_split.cuh); the
+// CUDA-core body leaves it alone. cluster: the most blocks a (sequence, kv
+// head) of the tensor-core launch, in [1, 16] (the wrapper's min(8,
+// n_split), at least 1); n_pages: the pool's N. *launched is set to the
+// cluster size the tensor-core launch took (0 for the CUDA-core body),
+// *body to the body launched: 1 the tensor cores, 0 the CUDA cores.
+// Returns the launch's error, else its cudaGetLastError() (0 = launched).
 extern "C" int paged_decode_attention(const void* q, const void* k_pages, const void* v_pages,
                                       const void* block_tables, const void* kv_len, void* out,
                                       void* ws, int B, int hq, int hkv, int hd, int nb, int bs,
                                       int n_split, float scale, int q_dtype, int kv_dtype,
-                                      void* stream, int* body) {
+                                      int n_pages, int cluster, void* stream, int* launched,
+                                      int* body) {
   const int* tb = static_cast<const int*>(block_tables);
   const int* kl = static_cast<const int*>(kv_len);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool mma = q_dtype == BF16 && kv_dtype == BF16 && hq / hkv <= mma_attn::ROWS;
   *body = mma ? 1 : 0;
+  *launched = 0;
   if (B == 0) return 0;
   if (mma) {
     if (n_split != dsplit::n_splits(nb * bs)) return cudaErrorInvalidValue;
-    return mma_by_hd(hd, q, k_pages, v_pages, tb, kl, out, ws, B, hq, hkv, nb, bs, n_split, scale,
-                     st);
+    return mma_by_hd(hd, q, k_pages, v_pages, tb, kl, out, ws, B, hq, hkv, nb, bs, n_pages,
+                     n_split, cluster, scale, st, launched);
   }
   switch (q_dtype) {
     case F32:

@@ -28,18 +28,20 @@
 //   then the combine (2.), launched early too and waiting on the device.
 //   1. decode tiles, split over keys (ragged_split_kernel): block (tile,
 //      h, s) takes kv positions [s KPS, (s + 1) KPS) of a decode tile's
-//      token and runs the paged decode kernel's body on them
-//      (decode_split.cuh over mma_attention.cuh: cp.async stages, mma.sync,
+//      token and runs the split body on them (decode_split.cuh's
+//      attend_split over mma_attention.cuh: cp.async stages, mma.sync,
 //      the four warps splitting each stage's keys) for the G rows of kv
 //      head h, writing unnormalised partials to a workspace of T / tile_q
 //      slots; a block whose tile is no decode tile, or whose split starts
 //      past its row's length, exits at once.
 //   2. their combine (ragged_combine_kernel): one warp a (slot, q head)
-//      adds the partials in split order as paged decode's combine does
-//      (decode_split.cuh's combine_row); the split records each tile's
-//      decode slot and key count for it. A key's split depends on its
-//      position alone, so over bf16 pages a decode row's bits are
-//      paged_decode_attention's on the same pages and length.
+//      adds the partials in split order (decode_split.cuh's combine_row,
+//      the arithmetic of the decode kernels' cluster combine); the split
+//      records each tile's decode slot and key count for it. A key's
+//      split depends on its position alone, so over bf16 pages a decode
+//      row's bits are paged_decode_attention's on the same pages and
+//      length, though that kernel brings its stages by TMA and combines
+//      inside one cluster launch.
 //   3. prefill spans (ragged_span_kernel): block (span, h) owns a span of
 //      consecutive tiles worth 64 query rows per consumer warpgroup (8 / G
 //      tiles a warpgroup; rows past (8 / G) 8 G, at G 3 and 7, are spare
@@ -92,7 +94,7 @@
 // consumers' instruction stream. At the serving shapes the products are
 // far from the tensor-core rate: what is left is each span's serial walk
 // over its stages, the three launches (two grid ends before the last one
-// returns, where paged decode has one), and the split's grid of
+// returns, where paged decode has none), and the split's grid of
 // T / tile_q x Hkv x n_split blocks, most of which only find that their
 // tile is no decode tile (tools/ragged_probe.py times each kernel).
 
@@ -346,9 +348,10 @@ ragged_split_kernel(dsplit::Workspace ws, int* __restrict__ slots,
 }
 
 // The decode tiles' rows from the split's partials: one warp a (workspace
-// slot, q head), as paged decode's combine (decode_split.cuh's
-// combine_row, in split order); a warp whose tile is no decode tile
-// (slots: the split's decode_slot and key count a tile) returns at once.
+// slot, q head), with the decode kernels' combine arithmetic
+// (decode_split.cuh's combine_row, in split order); a warp whose tile is
+// no decode tile (slots: the split's decode_slot and key count a tile)
+// returns at once.
 // The span kernel zeroes the decode tiles' pad rows.
 template <int HD>
 __global__ void __launch_bounds__(32 * dsplit::COMBINE_WARPS)
@@ -935,25 +938,6 @@ struct TcArgs {
   cudaStream_t st;
 };
 
-// Launch `kernel`, as the programmatic dependent of the kernel before it
-// on the stream when `pdl`: it may start while that one runs.
-template <typename Kernel, typename... Args>
-cudaError_t launch_ex(Kernel kernel, dim3 grid, int threads, size_t smem, cudaStream_t st,
-                      bool pdl, Args... args) {
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cfg.attrs = attr;
-  cfg.numAttrs = pdl ? 1 : 0;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
-  return e != cudaSuccess ? e : cudaGetLastError();
-}
-
 // The split, as the spans' programmatic dependent: it starts while they
 // run.
 template <typename KT, int HD>
@@ -964,11 +948,11 @@ cudaError_t launch_split(const TcArgs& a, const dsplit::Workspace& ws, int* slot
   auto kernel = ragged_split_kernel<KT, Q8, HD>;
   const cudaError_t e = ensure_smem(kernel, bytes, &configured);
   if (e != cudaSuccess) return e;
-  return launch_ex(kernel, dim3(a.T / TILE, a.hkv, a.n_split), mma_attn::THREADS, bytes, a.st,
-                   true, ws, slots, static_cast<const __nv_bfloat16*>(a.q),
-                   static_cast<const KT*>(a.kp), static_cast<const KT*>(a.vp), a.ks, a.kz, a.vs,
-                   a.vz, a.tables, a.row, a.pos, a.T / TILE, a.hq, a.hkv, a.nb, a.bs, a.n_split,
-                   a.scale);
+  return hopper::launch_ex(kernel, dim3(a.T / TILE, a.hkv, a.n_split), mma_attn::THREADS, bytes,
+                           a.st, true, 0, ws, slots, static_cast<const __nv_bfloat16*>(a.q),
+                           static_cast<const KT*>(a.kp), static_cast<const KT*>(a.vp), a.ks,
+                           a.kz, a.vs, a.vz, a.tables, a.row, a.pos, a.T / TILE, a.hq, a.hkv,
+                           a.nb, a.bs, a.n_split, a.scale);
 }
 
 template <typename KT, int HD, int CWG>
@@ -986,10 +970,12 @@ cudaError_t launch_span(const TcArgs& a) {
     return cudaErrorInvalidValue;
   }
   const int n_tiles = a.T / TILE;
-  return launch_ex(kernel, dim3((n_tiles + CWG * tpw - 1) / (CWG * tpw), a.hkv), S::THREADS,
-                   S::SMEM, a.st, false, qm, km, vm, static_cast<const __nv_bfloat16*>(a.q),
-                   static_cast<__nv_bfloat16*>(a.out), a.ks, a.kz, a.vs, a.vz, a.tables, a.row,
-                   a.pos, n_tiles, a.hq, a.hkv, a.nb, a.bs, a.n_split, a.scale * LOG2E);
+  return hopper::launch_ex(kernel, dim3((n_tiles + CWG * tpw - 1) / (CWG * tpw), a.hkv),
+                           S::THREADS, S::SMEM, a.st, false, 0, qm, km, vm,
+                           static_cast<const __nv_bfloat16*>(a.q),
+                           static_cast<__nv_bfloat16*>(a.out), a.ks, a.kz, a.vs, a.vz, a.tables,
+                           a.row, a.pos, n_tiles, a.hq, a.hkv, a.nb, a.bs, a.n_split,
+                           a.scale * LOG2E);
 }
 
 // The spans of `rows` rows, then (when the workspace is given) the split
@@ -1005,11 +991,11 @@ cudaError_t launch_tc(int rows, const TcArgs& a) {
   e = launch_split<KT, HD>(a, ws, slots);
   if (e != cudaSuccess) return e;
   const int n_rows = n_tiles * a.hq;
-  return launch_ex(ragged_combine_kernel<HD>,
-                   dim3((n_rows + dsplit::COMBINE_WARPS - 1) / dsplit::COMBINE_WARPS),
-                   32 * dsplit::COMBINE_WARPS, 0, a.st, true, ws,
-                   static_cast<const int*>(slots), static_cast<__nv_bfloat16*>(a.out), n_tiles,
-                   a.hq, a.n_split);
+  return hopper::launch_ex(ragged_combine_kernel<HD>,
+                           dim3((n_rows + dsplit::COMBINE_WARPS - 1) / dsplit::COMBINE_WARPS),
+                           32 * dsplit::COMBINE_WARPS, 0, a.st, true, 0, ws,
+                           static_cast<const int*>(slots), static_cast<__nv_bfloat16*>(a.out),
+                           n_tiles, a.hq, a.n_split);
 }
 
 template <typename KT>

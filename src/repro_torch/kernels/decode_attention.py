@@ -11,13 +11,18 @@ One query token per sequence, masked by ``kv_len``, either
   plain version ``kernels/ref.py::decode_attention_reference``).
 
 Two bodies each, chosen by dtype in the C entry points: a bf16 q over bf16
-pages, and bf16 or fp16 caches, run on the tensor cores with the key walk
-split over blocks of ``SPLIT_KEYS`` positions and a combine pass
-(``csrc/decode_split.cuh``); float32, and fp16 pages under a bf16 q, run on
-the CUDA cores (f32 FMAs), so the f32 checks hold them to 1e-5.
-``BODY_LAUNCHES`` counts each body's launches apart. The split's f32
-workspace is sized from shapes alone (``split_count``): the wrappers never
-read ``kv_len`` on the host, so a call holds no sync.
+pages, and bf16 or fp16 caches, run on the tensor cores in one launch
+(``csrc/decode_split.cuh``): the key walk split over blocks of
+``SPLIT_KEYS`` positions, the blocks of one (sequence, kv head) a thread
+block cluster of at most ``cluster_size`` blocks that combines the splits
+before the launch ends, K and V brought by TMA; float32, and fp16 pages
+under a bf16 q, run on the CUDA cores (f32 FMAs), so the f32 checks hold
+them to 1e-5. ``BODY_LAUNCHES`` counts each body's launches apart, and
+``LAST_LAUNCH`` records each kernel's last tensor-core launch: the
+cluster size it took (the C entry point may take fewer blocks, so that
+the grid fits the card at once) and where its partials went (the f32
+workspace, whose size follows from shapes alone: ``split_count``). The
+wrappers never read ``kv_len`` on the host, so a call holds no sync.
 """
 
 from __future__ import annotations
@@ -37,24 +42,39 @@ CACHE_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 # kv positions a split of the tensor-core bodies: csrc/decode_split.cuh's
 # KPS, which the C entry points hold the workspace's split count to
 SPLIT_KEYS = 128
+# the most blocks a cluster: the portable cluster size (the C entry points
+# refuse more than 16, and the card any cluster it cannot hold)
+CLUSTER_MAX = 8
 
 # launches, counted where each kernel is launched; and by body
 LAUNCHES = {"paged_decode_attention": 0, "decode_attention": 0}
 BODY_LAUNCHES = {f"{name}/{body}": 0 for name in LAUNCHES
                  for body in ("tensor_core", "cuda_core")}
+# each kernel's last tensor-core launch: {"cluster": C, "partials":
+# "workspace"}
+LAST_LAUNCH = {name: None for name in LAUNCHES}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = ([_P] * 7 + [_I] * 7 + [ctypes.c_float, _I, _I, _P,
-                                    ctypes.POINTER(_I)])
-_CONTIG_ARGTYPES = ([_P] * 6 + [_I] * 6 + [ctypes.c_float, _I, _P,
-                                           ctypes.POINTER(_I)])
+_OUT = ctypes.POINTER(_I)
+_ARGTYPES = ([_P] * 7 + [_I] * 7 + [ctypes.c_float] + [_I] * 4
+             + [_P, _OUT, _OUT])
+_CONTIG_ARGTYPES = ([_P] * 6 + [_I] * 6 + [ctypes.c_float] + [_I] * 2
+                    + [_P, _OUT, _OUT])
 
 
 def split_count(n_keys: int) -> int:
     """Splits of the tensor-core bodies over ``n_keys`` kv positions (a
     table's nb * bs, or a cache's S): a function of shapes only."""
     return -(-n_keys // SPLIT_KEYS)
+
+
+def cluster_size(n_split: int) -> int:
+    """The most blocks a (sequence, kv head) of the tensor-core launch: one
+    a split, at most ``CLUSTER_MAX``, at least one. A function of shapes
+    only; the C entry point takes this many, or the largest power of two
+    below it whose grid the card holds at once."""
+    return max(1, min(CLUSTER_MAX, n_split))
 
 
 def _workspace(q, n_split):
@@ -65,9 +85,12 @@ def _workspace(q, n_split):
                        device=q.device)
 
 
-def _count(name, body):
+def _count(name, body, cluster):
     LAUNCHES[name] += 1
     BODY_LAUNCHES[f"{name}/{_build.BODIES[body.value]}"] += 1
+    if cluster.value:
+        LAST_LAUNCH[name] = {"cluster": cluster.value,
+                             "partials": "workspace"}
 
 
 def check_paged_operands(q, k_pages, v_pages, block_tables, kv_len):
@@ -114,16 +137,18 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, kv_len):
     ws = _workspace(q, n_split)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     fn = _build.entry("paged_decode_attention", _ARGTYPES)
-    body = ctypes.c_int(-1)
+    body, cluster = ctypes.c_int(-1), ctypes.c_int(0)
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              block_tables.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
              ws.data_ptr(), b, hq, hkv, hd, nb, bs, n_split,
              softmax_scale(hd), _build.dtype_code(q.dtype),
-             _build.dtype_code(k_pages.dtype), stream, ctypes.byref(body))
+             _build.dtype_code(k_pages.dtype), k_pages.shape[0],
+             cluster_size(n_split), stream, ctypes.byref(cluster),
+             ctypes.byref(body))
     if err:
         raise RuntimeError(f"paged_decode_attention launch failed: CUDA "
                            f"error {err}")
-    _count("paged_decode_attention", body)
+    _count("paged_decode_attention", body, cluster)
     return out
 
 
@@ -160,13 +185,14 @@ def decode_attention(q, k_cache, v_cache, kv_len):
     ws = _workspace(q, n_split)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     fn = _build.entry("decode_attention", _CONTIG_ARGTYPES)
-    body = ctypes.c_int(-1)
+    body, cluster = ctypes.c_int(-1), ctypes.c_int(0)
     err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
              kv_len.data_ptr(), out.data_ptr(), ws.data_ptr(), b, s, hq, hkv,
              hd, n_split, softmax_scale(hd), _build.dtype_code(q.dtype),
-             stream, ctypes.byref(body))
+             cluster_size(n_split), stream, ctypes.byref(cluster),
+             ctypes.byref(body))
     if err:
         raise RuntimeError(f"decode_attention launch failed: CUDA error "
                            f"{err}")
-    _count("decode_attention", body)
+    _count("decode_attention", body, cluster)
     return out

@@ -61,6 +61,20 @@ _ARGTYPES = ([_P] * 12 + [_I] * 9 + [ctypes.c_float, _I, _I, _P]
              + [ctypes.POINTER(_I)] * 2)
 
 
+def check_page_size(bs, q_dtype, page_dtype, group):
+    """Raises ``ValueError`` on a page size that the kernel's tensor-core
+    body would get and does not take: a bf16 q over bf16 or int8 pages
+    with a GQA group of at most ``TC_GROUP`` needs pages of a power of two
+    >= 4 rows (a stage of its spans is whole pages, each box on 128
+    bytes). The other bodies take any size. ``check_operands`` and, on a
+    CUDA device, ``Engine`` apply it."""
+    if (q_dtype == torch.bfloat16
+            and page_dtype in (torch.bfloat16, torch.int8)
+            and group <= TC_GROUP and (bs < 4 or bs & (bs - 1))):
+        raise ValueError(f"page size {bs}: the tensor-core body takes pages "
+                         f"of a power of two >= 4 rows")
+
+
 def check_operands(q, k_pages, v_pages, tables, row, pos, kv_quant=None):
     """Raises ``ValueError`` on an operand the kernel does not take: its
     dtypes, head dims, shapes, int32 indices, the int8 pages' scale/zero
@@ -90,12 +104,7 @@ def check_operands(q, k_pages, v_pages, tables, row, pos, kv_quant=None):
         a = kv_quant[k]
         if a.dtype != torch.float32 or a.shape != k_pages.shape[:-1]:
             raise ValueError(f"{k}: want f32 {tuple(k_pages.shape[:-1])}")
-    bs = k_pages.shape[1]
-    if (q.dtype == torch.bfloat16
-            and k_pages.dtype in (torch.bfloat16, torch.int8)
-            and hq // hkv <= TC_GROUP and (bs < 4 or bs & (bs - 1))):
-        raise ValueError(f"page size {bs}: the tensor-core body takes pages "
-                         f"of a power of two >= 4 rows")
+    check_page_size(k_pages.shape[1], q.dtype, k_pages.dtype, hq // hkv)
     _build.check_aligned("ragged_paged_attention", k_pages=k_pages,
                          v_pages=v_pages)
 

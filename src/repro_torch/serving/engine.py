@@ -76,6 +76,7 @@ from repro_torch.analysis.sanitizer import KVSanitizer
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.kernels.ragged_attention import check_page_size
 from repro_torch.models.attention import paged_kv_token_bytes
 from repro_torch.models.common import as_dtype
 from repro_torch.models import transformer
@@ -139,6 +140,14 @@ class Engine:
         if quantized and not fused:
             raise ValueError("int8 KV pages are only served by the fused "
                              "ragged kernel (fused=True)")
+        if self.device.type == "cuda" and paged and attn_only:
+            # the ragged kernel serves every prefill here: refuse a page
+            # size its tensor-core body does not take before anything is
+            # built or admitted
+            check_page_size(block_size, as_dtype(cfg.dtype),
+                            as_dtype(cfg.dtype if kv_dtype is None
+                                     else kv_dtype),
+                            cfg.n_heads // cfg.n_kv_heads)
         self.kv_dtype = kv_dtype
         self.fused = fused
         self.prefix_cache = prefix_cache

@@ -20,8 +20,11 @@ scattered ids). The four attention kernels have two bodies each, counted
 apart (``ops.body_counts``): bf16/fp16 operands (and int8 pages under a
 bf16 q) take the tensor cores, float32 the CUDA cores; the bf16 cases
 check which ran. The decode kernels' tensor-core bodies split each row's
-keys over blocks of ``SPLIT_KEYS`` positions, so their cases cross split
-boundaries; so does the ragged kernel's on its decode runs, whose bf16
+keys over blocks of ``SPLIT_KEYS`` positions, a cluster of up to 8 blocks
+a (sequence, kv head) in one launch, so their cases cross split and
+cluster boundaries, vary the cluster size and hold the two layouts' bits
+equal. The ragged kernel splits
+its decode runs over the same blocks (in two kernels), and their bf16
 rows must equal paged decode's bit for bit, while its prefill spans run on
 ``wgmma`` with pages by TMA (64 or 128 rows a block, as the launch
 reports), so its cases also put NaN past every row's limit, mix runs
@@ -492,6 +495,250 @@ def test_cuda_decode_split_is_deterministic(cuda, layout):
                 for kk, vv in ((k, v), (k, v), (kw, vw))]
     assert torch.equal(runs[0], runs[1])
     assert torch.equal(runs[0], runs[2])
+
+
+def _as_strips(pages, tables, s):
+    """Each row's first s positions gathered through its table: the same
+    keys as slot-contiguous caches (B, s, Hkv, hd)."""
+    return torch.stack([pages[t].reshape(-1, *pages.shape[2:])[:s]
+                        for t in tables.long()])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("group", [1, 4, 7])
+def test_cuda_contiguous_decode_equals_paged_decode(cuda, group, hd):
+    """The two decode kernels run one split and combine: the same keys laid
+    out as pages under a table and as cache strips (S = the table's
+    width) give the same bits, each row within its limit of the plain
+    version, a kv_len 0 row exactly 0."""
+    lens = [1024, 777, 300, 1, 0, KPS, KPS + 1]
+    hkv = 8 if hd == 128 else 2
+    q, k, v, tb, kl = _decode(lens, hkv * group, hkv, hd, 16,
+                              seed=41 + group)
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    kc, vc = (_as_strips(a, tb, tb.shape[1] * 16) for a in (k, v))
+    q, k, v, tb, kl, kc, vc = _to(cuda, (q, k, v, tb, kl, kc, vc))
+    ops.reset_launch_counts()
+    paged = decode_attention.paged_decode_attention(q, k, v, tb, kl)
+    contig = decode_attention.decode_attention(q, kc, vc, kl)
+    assert _bodies("paged_decode_attention") == (1, 0)
+    assert _bodies("decode_attention") == (1, 0)
+    assert torch.equal(paged, contig)
+    _assert_rows_close(contig, ref.decode_attention_reference(
+        q.float(), kc.float(), vc.float(), kl))
+    assert bool((contig[kl == 0] == 0).all())
+
+
+# lengths at the cluster's edges: one key, one split, a split and a key,
+# one split a block of a cluster of 8, one more (a block walks two), and
+# a row that no power of two divides
+EDGE_LENS = [1, KPS, KPS + 1, 8 * KPS, 8 * KPS + 1, 4097]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", EDGE_LENS)
+@pytest.mark.parametrize("layout", ["paged", "contiguous"])
+def test_cuda_decode_split_is_deterministic_at_cluster_edges(cuda, layout,
+                                                             n):
+    """A row of n keys beside a row of none, under a table (or a cache S)
+    as narrow as the row and under one 4,096 positions wider: the cluster
+    size and the splits each block walks change with the width (C =
+    min(8, n_split)), the bits do not; the row is within its limit of the
+    plain version and the empty row exactly 0."""
+    hq, hkv, hd, bs = 32, 8, 128, 16
+    lens = [n, 0]
+    rng = np.random.RandomState(n)
+    if layout == "paged":
+        q, k, v, tb, kl = _decode(lens, hq, hkv, hd, bs, seed=n)
+        narrow = tb[:, :-(-n // bs)].contiguous()
+        wide = torch.cat([narrow, torch.from_numpy(rng.randint(
+            0, k.shape[0], (2, 4096 // bs)).astype(np.int32))], 1)
+        q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+        q, k, v, narrow, wide, kl = _to(cuda, (q, k, v, narrow, wide, kl))
+        runs = [decode_attention.paged_decode_attention(q, k, v, t, kl)
+                for t in (narrow, wide)]
+        want = ref.paged_decode_attention_reference(q.float(), k.float(),
+                                                    v.float(), narrow, kl)
+        caps = [narrow.shape[1] * bs, wide.shape[1] * bs]
+        name = "paged_decode_attention"
+    else:
+        q, k, v, kl = _contig_decode(lens, n, hq, hkv, hd, seed=n)
+        kw, vw = (torch.cat([a, torch.from_numpy(rng.randn(
+            2, 4096, hkv, hd).astype(np.float32))], 1) for a in (k, v))
+        q, k, v, kw, vw = (a.bfloat16() for a in (q, k, v, kw, vw))
+        q, k, v, kw, vw, kl = _to(cuda, (q, k, v, kw, vw, kl))
+        runs = []
+        for kk, vv in ((k, v), (kw, vw)):
+            runs.append(decode_attention.decode_attention(q, kk, vv, kl))
+        want = ref.decode_attention_reference(q.float(), k.float(),
+                                              v.float(), kl)
+        caps = [n, n + 4096]
+        name = "decode_attention"
+    launch = decode_attention.LAST_LAUNCH[name]
+    assert launch["cluster"] == decode_attention.cluster_size(
+        decode_attention.split_count(caps[1])) == 8
+    assert torch.equal(runs[0], runs[1])
+    _assert_rows_close(runs[0], want)
+    assert bool((runs[0][1] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["paged", "contiguous"])
+def test_cuda_decode_kv_len_zero_reads_nothing(cuda, layout):
+    """Rows of no key come back exactly 0 from every block of their
+    cluster, and nothing of theirs is read: every page and cache row holds
+    NaN."""
+    lens = [0, 0, 0]
+    if layout == "paged":
+        q, k, v, tb, kl = _decode([1040] * 3, 32, 8, 128, 16, seed=3)
+        k[:], v[:] = float("nan"), float("nan")
+        q, k, v, tb = _to(cuda, (q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                                 tb))
+        kl = torch.tensor(lens, dtype=torch.int32, device=cuda)
+        out = decode_attention.paged_decode_attention(q, k, v, tb, kl)
+    else:
+        q, k, v, kl = _contig_decode(lens, 1040, 32, 8, 128, seed=3)
+        k[:], v[:] = float("nan"), float("nan")
+        q, k, v, kl = _to(cuda, (q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                                 kl))
+        out = decode_attention.decode_attention(q, k, v, kl)
+    assert bool((out == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["paged", "contiguous"])
+def test_cuda_decode_refuses_a_cluster_the_card_cannot_hold(
+        cuda, layout, monkeypatch):
+    """A launch whose clusters fail the occupancy check (16 blocks, past
+    the portable 8, without the non-portable attribute) raises and counts
+    no launch: no other launch stands in for it. At the portable size the
+    same call runs."""
+    lens = [2100, 5]
+    q, k, v, tb, kl = _decode(lens, 32, 8, 128, 16, seed=9)
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    if layout == "paged":
+        args = _to(cuda, (q, k, v, tb, kl))
+        fn, name = decode_attention.paged_decode_attention, \
+            "paged_decode_attention"
+        want = ref.paged_decode_attention_reference(
+            *[a.float() if a.is_floating_point() else a for a in args])
+    else:
+        kc, vc = (_as_strips(a, tb, tb.shape[1] * 16) for a in (k, v))
+        args = _to(cuda, (q, kc, vc, kl))
+        fn, name = decode_attention.decode_attention, "decode_attention"
+        want = ref.decode_attention_reference(
+            *[a.float() if a.is_floating_point() else a for a in args])
+    monkeypatch.setattr(decode_attention, "CLUSTER_MAX", 16)
+    ops.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fn(*args)
+    assert ops.launch_counts()[name] == 0
+    monkeypatch.setattr(decode_attention, "CLUSTER_MAX", 8)
+    out = fn(*args)
+    torch.cuda.synchronize()
+    assert decode_attention.LAST_LAUNCH[name]["cluster"] == 8
+    _assert_rows_close(out, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [1, 4, 64])
+@pytest.mark.parametrize("layout", ["paged", "contiguous"])
+def test_cuda_decode_bits_do_not_depend_on_the_cluster_size(
+        cuda, layout, group, monkeypatch):
+    """Clusters of 1, 2, 4 or 8 blocks a (sequence, kv head) walk the same
+    splits in other blocks and combine them in the same order: the same
+    bits, each row within its limit of the plain version. The launch never
+    takes more blocks than asked (``LAST_LAUNCH``); G 64 fills a block's
+    row groups (no key split), G 1 at 8 kv heads leaves most rows empty."""
+    hkv = 1 if group == 64 else 8
+    q, k, v, tb, kl = _decode([1024, 777, 300, 1, 0], hkv * group, hkv, 128,
+                              16, seed=group)
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    if layout == "paged":
+        args = _to(cuda, (q, k, v, tb, kl))
+        fn, name = decode_attention.paged_decode_attention, \
+            "paged_decode_attention"
+        want = ref.paged_decode_attention_reference(
+            *[a.float() if a.is_floating_point() else a for a in args])
+    else:
+        kc, vc = (_as_strips(a, tb, tb.shape[1] * 16) for a in (k, v))
+        args = _to(cuda, (q, kc, vc, kl))
+        fn, name = decode_attention.decode_attention, "decode_attention"
+        want = ref.decode_attention_reference(
+            *[a.float() if a.is_floating_point() else a for a in args])
+    outs = []
+    for most in (1, 2, 4, 8):
+        monkeypatch.setattr(decode_attention, "CLUSTER_MAX", most)
+        outs.append(fn(*args))
+        launch = decode_attention.LAST_LAUNCH[name]
+        assert 1 <= launch["cluster"] <= most
+        assert launch["partials"] == "workspace"
+    for out in outs[1:]:
+        assert torch.equal(out, outs[0])
+    _assert_rows_close(outs[0], want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,bs", [(16, 5), (16, 6), (16, 12), (32, 5),
+                                   (32, 6), (64, 12), (128, 12), (128, 80)])
+def test_cuda_paged_decode_any_page_size(cuda, hd, bs):
+    """Pages of any size: the tensor-core body's TMA boxes are the largest
+    power of two that divides the page (so none crosses a page), each on
+    128 bytes of shared memory even where a row is 32 bytes. The output
+    equals the contiguous kernel's on the same keys bit for bit and is
+    within each row's limit of the plain version."""
+    lens = [300, KPS + 1, 1, 0, 8 * KPS + 3]
+    hkv = 2
+    q, k, v, tb, kl = _decode(lens, 4 * hkv, hkv, hd, bs, seed=bs + hd)
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    kc, vc = (_as_strips(a, tb, tb.shape[1] * bs) for a in (k, v))
+    q, k, v, tb, kl, kc, vc = _to(cuda, (q, k, v, tb, kl, kc, vc))
+    ops.reset_launch_counts()
+    got = decode_attention.paged_decode_attention(q, k, v, tb, kl)
+    assert _bodies("paged_decode_attention") == (1, 0)
+    assert torch.equal(got, decode_attention.decode_attention(q, kc, vc, kl))
+    _assert_rows_close(got, ref.paged_decode_attention_reference(
+        q.float(), k.float(), v.float(), tb, kl))
+    assert bool((got[kl == 0] == 0).all())
+
+
+@pytest.mark.cuda
+def test_cuda_engine_refuses_a_page_size_its_prefill_cannot_take(cuda):
+    """A bf16 paged engine of an attention-only model on the card (its
+    prefills, and under ``fused`` or int8 pages its decode rows, go through
+    the ragged kernel's tensor-core body) refuses ``block_size=12`` with
+    ``ValueError`` at construction, before anything is built or admitted;
+    at 16 it serves. A float32 engine (the CUDA-core bodies) takes 12 and
+    serves the CPU's stream."""
+    import dataclasses
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.models.model import Model
+    from repro_torch.serving.api import SamplingParams
+    from repro_torch.serving.engine import Engine
+    cfg = smoke_variant(get_config("granite-3-8b"))
+    bf = dataclasses.replace(cfg, dtype="bfloat16")
+    bparams = _tree_to(Model(bf).init(torch.Generator().manual_seed(0),
+                                      device="cpu"), cuda)
+    for kw in ({}, {"fused": True}, {"kv_dtype": "int8"}):
+        with pytest.raises(ValueError, match="page size 12"):
+            Engine(bf, [bparams], max_batch=2, max_seq=32, block_size=12,
+                   device=cuda, **kw)
+    prompt = [1, 2, 3, 4, 5, 6, 7]
+    eng = Engine(bf, [bparams], max_batch=2, max_seq=32, block_size=16,
+                 device=cuda)
+    req = eng.submit(prompt, SamplingParams(max_new=4))
+    eng.run()
+    assert len(req.generated) == 4
+    params = Model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    streams = []
+    for dev in ("cpu", "cuda"):
+        eng = Engine(cfg, [_tree_to(params, dev)], max_batch=2, max_seq=32,
+                     block_size=12, device=dev)
+        req = eng.submit(prompt, SamplingParams(max_new=5))
+        eng.run()
+        streams.append(list(req.generated))
+    assert streams[0] == streams[1]
 
 
 @pytest.mark.cuda

@@ -509,3 +509,58 @@ def test_prefix_embeds_refused_without_admitting(granite, kv_dtype):
         return [r.rid for r in reqs], [list(r.generated) for r in reqs]
 
     assert serve(True) == serve(False)
+
+
+@pytest.mark.parametrize("kw", [{}, {"fused": True}, {"kv_dtype": "int8"}],
+                         ids=["paged", "fused", "int8"])
+def test_any_block_size_serves_on_the_cpu_as_the_reference(granite, kw):
+    """On the CPU the port's engine takes any ``block_size``, as the
+    reference's does (its ragged kernel checks only T): at pages of 12 rows
+    (no power of two, so the card's bf16 engines refuse it at
+    construction) the greedy streams equal the reference's at the same
+    page size, and every block comes back."""
+    jcfg, jparams, tcfg, tparams = granite
+    knobs = {**KW, "block_size": 12}
+    jeng = JEngine(jcfg, [jparams], **knobs, **kw)
+    jreqs = [jeng.submit(p, JSP(max_new=6)) for p in PROMPTS]
+    jeng.run()
+    eng = Engine(tcfg, [tparams], **knobs, device="cpu", **kw)
+    reqs = [eng.submit(p, SamplingParams(max_new=6)) for p in PROMPTS]
+    eng.run()
+    assert eng.block_mgr.block_size == 12
+    assert [list(r.generated) for r in reqs] == [list(r.generated)
+                                                 for r in jreqs]
+    assert eng.block_mgr.free_blocks == eng.block_mgr.n_blocks
+
+
+@pytest.mark.parametrize("bs", [1, 2, 3, 4, 6, 8, 12, 16, 64])
+@pytest.mark.parametrize("group", [1, 4, 8, 9])
+def test_page_size_rule(bs, group):
+    """``check_page_size``: the ragged kernel's tensor-core body (a bf16 q
+    over bf16 or int8 pages, a GQA group of at most ``TC_GROUP``) takes
+    pages of a power of two >= 4 rows, and ``check_operands`` applies the
+    same rule; float32 and fp16 pages, a float32 q and larger groups take
+    any size."""
+    from repro_torch.kernels import ragged_attention as ra
+    bf, i8 = torch.bfloat16, torch.int8
+    ok = bs >= 4 and bs & (bs - 1) == 0
+    for q_dtype, page_dtype in ((bf, bf), (bf, i8), (bf, torch.float16),
+                                (torch.float32, torch.float32),
+                                (torch.float32, i8)):
+        refused = (q_dtype == bf and page_dtype in (bf, i8)
+                   and group <= ra.TC_GROUP and not ok)
+        if refused:
+            with pytest.raises(ValueError, match="page size"):
+                ra.check_page_size(bs, q_dtype, page_dtype, group)
+        else:
+            ra.check_page_size(bs, q_dtype, page_dtype, group)
+    hkv, hd = 2, 16
+    q = torch.zeros(ra.TILE_Q, group * hkv, hd, dtype=bf)
+    pages = torch.zeros(3, bs, hkv, hd, dtype=bf)
+    tables = torch.zeros(1, 2, dtype=torch.int32)
+    idx = torch.zeros(ra.TILE_Q, dtype=torch.int32)
+    if ok or group > ra.TC_GROUP:
+        ra.check_operands(q, pages, pages, tables, idx, idx)
+    else:
+        with pytest.raises(ValueError, match="page size"):
+            ra.check_operands(q, pages, pages, tables, idx, idx)
