@@ -1,0 +1,4 @@
+"""device_idle.coldstart: the share of the window in which neither a
+kernel nor a copy ran on the card (torch.profiler)."""
+
+from bench.metrics._common import idle_pct as read  # noqa: F401
