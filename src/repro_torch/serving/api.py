@@ -4,8 +4,8 @@ Everything a caller needs to drive a generation without reaching into the
 engine: ``SamplingParams`` describe *how* to decode, ``TokenEvent`` /
 ``StepOutput`` stream *what* was decoded, ``FinishReason`` says *why* a
 request stopped, and ``RequestMetrics`` records the per-request lifecycle
-in scheduler steps (the engine's time unit — wall-clock belongs to the
-benchmarks).
+in scheduler steps (the engine's time unit), with four wall-clock stamps
+beside them (``telemetry.now()``).
 
 Determinism contract: :func:`sample_token` keys its generator only on
 ``(seed, token_index)``, never on batch position, slot, KV layout, or
@@ -25,6 +25,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch import telemetry
 from repro_torch.core.types import SLO
 
 
@@ -86,6 +87,12 @@ class RequestMetrics:
     HBM at admission but restored from a lower KV tier
     (router/kvtier.py); ``restore_seconds`` is the modeled wall time of
     those transfers on the contention-fair ``FetchSchedule``.
+
+    The ``*_t`` fields are wall-clock stamps, ``telemetry.now()`` (seconds
+    of ``time.perf_counter``), set beside the step stamps: ``submit_t`` at
+    submit, ``admitted_t`` when the scheduler's plan first gives the
+    request a slot, ``first_token_t`` at its first token, ``finish_t`` when
+    it finishes; None until then.
     """
     submit_step: int = 0
     admit_step: Optional[int] = None      # step of the first token
@@ -97,6 +104,10 @@ class RequestMetrics:
     restore_seconds: float = 0.0          # modeled restore transfer time
     preemptions: int = 0                  # times evicted from a slot
     last_token_step: Optional[int] = None  # step of the latest token
+    submit_t: Optional[float] = None
+    admitted_t: Optional[float] = None
+    first_token_t: Optional[float] = None
+    finish_t: Optional[float] = None
 
     @property
     def ttft_steps(self) -> Optional[int]:
@@ -172,8 +183,10 @@ def sample_token(logits, params: SamplingParams, token_index: int) -> int:
     temperature-scaled, optionally top-k truncated, seeded categorical
     whose generator depends only on ``(params.seed, token_index)`` (see
     module docstring). The draw runs on the CPU, so it does not depend on
-    the device the logits came from.
+    the device the logits came from. Either way the host reads the logits
+    (one ``host_sync``).
     """
+    telemetry.count("host_sync")
     if params.greedy:
         return int(torch.argmax(logits))
     scaled = logits.detach().to("cpu", torch.float32) / params.temperature

@@ -31,6 +31,7 @@ import itertools
 from dataclasses import dataclass
 from typing import Dict, Iterator, List, Optional, Sequence, Union
 
+from repro_torch import telemetry
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.coldstart import OverlapFlags
 from repro_torch.core.controller import CentralController
@@ -261,6 +262,7 @@ class ServerlessFrontend:
                  if s in self.servers]
         return min(known) if known else 12e9
 
+    @telemetry.spanned("coldstart.plan")
     def begin_cold_start(self, name: str, *, now: float = 0.0,
                          free_hbm: Optional[Dict[str, int]] = None,
                          force_s: Optional[int] = None, min_stages: int = 1,

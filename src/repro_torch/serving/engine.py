@@ -72,6 +72,7 @@ from typing import Iterator, List, Optional, Sequence, Union
 
 import torch
 
+from repro_torch import telemetry
 from repro_torch.analysis.sanitizer import KVSanitizer
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -94,6 +95,7 @@ __all__ = ["Engine", "GenRequest"]
 
 
 class Engine:
+    @telemetry.spanned("engine.build")
     def __init__(self, cfg: ModelConfig, stage_params: Sequence[dict],
                  max_batch: int = 4, max_seq: int = 128,
                  block_size: int = 16, paged: Optional[bool] = None,
@@ -315,6 +317,7 @@ class Engine:
         req = GenRequest(next(self._rid), list(prompt), params,
                          prefix_embeds)
         req.metrics.submit_step = self.steps
+        req.metrics.submit_t = telemetry.now()
         if req.prompt_total + params.max_new > self.max_seq:
             raise ValueError(
                 f"request needs {req.prompt_total + params.max_new} cache "
@@ -383,18 +386,60 @@ class Engine:
                                 prefix_embeds=req.prefix_embeds)
         req.prefilled = pa.start + pa.n
         self._step_prefill_tokens += pa.n
-        self.block_mgr.commit(req.rid, req.prefilled)
-        if not req.prefill_done:
-            return
-        if not req.generated:             # first admission: emit token 0
-            req.metrics.admit_step = self.steps
-            first = sample_token(h[0, 0], req.params, 0)
-            reason = self._emit(req, first, events)
-            self._extend(req, first)
+        first = None
+        if req.prefill_done and not req.generated:
+            with telemetry.span("engine.sample"):
+                first = sample_token(h[0, 0], req.params, 0)
+        with telemetry.span("engine.emit"):
+            self.block_mgr.commit(req.rid, req.prefilled)
+            if not req.prefill_done:
+                return
+            if first is not None:         # first admission: emit token 0
+                self._emit_first(req, first, events)
+            else:                         # resume: decode re-feeds the tail
+                self._extend(req, req.generated[-1])
+
+    def _emit_first(self, req: GenRequest, first: int,
+                    events: List[TokenEvent]):
+        """A fresh request's first token, at the end of its prefill."""
+        req.metrics.admit_step = self.steps
+        req.metrics.first_token_t = telemetry.now()
+        reason = self._emit(req, first, events)
+        self._extend(req, first)
+        if reason is not None:
+            self._finish(req, reason)
+
+    def _plan(self, preempted_rids: List[int]):
+        """One plan of a step's loop, applied to the runner: preempted
+        rows cleared, admitted rows written, restores and copy-on-write
+        copies made. Returns the plan."""
+        plan = self.scheduler.schedule()
+        for req, slot in plan.preempted:
+            preempted_rids.append(req.rid)
+            self.runner.clear_row(slot)
+            self.runner.clear_slot(slot)
+        for req in plan.admitted:
+            if req.metrics.admitted_t is None:
+                req.metrics.admitted_t = telemetry.now()
+            self.runner.set_row(req.slot,
+                                self.block_mgr.tables[req.rid].blocks)
+        self._apply_restores(plan.admitted)
+        self._apply_copies()
+        return plan
+
+    def _emit_decodes(self, reqs: Sequence[GenRequest], tokens: List[int],
+                      events: List[TokenEvent]):
+        """Each decoding request's sampled token emitted, its fed token's
+        KV committed, its table extended, and finished where it ends."""
+        for r, nxt in zip(reqs, tokens):
+            r.metrics.decode_steps += 1
+            reason = self._emit(r, nxt, events)
+            # the fed token's KV is now material through pos_next + 1
+            self.block_mgr.commit(
+                r.rid, r.prompt_total + len(r.generated) - 1)
+            self._extend(r, nxt)
             if reason is not None:
-                self._finish(req, reason)
-        else:                             # resume: decode re-feeds the tail
-            self._extend(req, req.generated[-1])
+                self._finish(r, reason)
 
     def step(self) -> StepOutput:
         """One scheduler iteration: ask the Scheduler for ScheduleBatch
@@ -404,7 +449,8 @@ class Engine:
         prefill frees its slot for a same-step admission — then one
         batched decode over the final plan's decode set. A *mixed* step
         is one where chunked prefill and decode coexist. Returns the
-        step's newly emitted token events (streaming).
+        step's newly emitted token events (streaming). The step's phases
+        are ``telemetry`` spans: schedule, inputs, forward, sample, emit.
 
         ``fused=True`` engines route through :meth:`_step_fused`: the
         same plans, but every forward of the step collapses into (at
@@ -422,16 +468,8 @@ class Engine:
                          else self.prefill_chunk)
         preempted_rids: List[int] = []
         while True:
-            plan = sched.schedule()
-            for req, slot in plan.preempted:
-                preempted_rids.append(req.rid)
-                self.runner.clear_row(slot)
-                self.runner.clear_slot(slot)
-            for req in plan.admitted:
-                self.runner.set_row(req.slot,
-                                    self.block_mgr.tables[req.rid].blocks)
-            self._apply_restores(plan.admitted)
-            self._apply_copies()
+            with telemetry.span("engine.schedule"):
+                plan = self._plan(preempted_rids)
             for pa in plan.prefills:
                 self._exec_prefill(pa, events)
             if plan.idle:
@@ -440,23 +478,17 @@ class Engine:
         if reqs:
             skip = [r.slot for r in sched.running() if not r.prefill_done]
             h = self.runner.decode(reqs, skip_slots=skip)
-            greedy = None
-            if any(r.params.greedy for r in reqs):
-                greedy = torch.argmax(h[:, 0], dim=-1).tolist()
-            for r in reqs:
-                if r.params.greedy:
-                    nxt = int(greedy[r.slot])
-                else:
-                    nxt = sample_token(h[r.slot, 0], r.params,
-                                       len(r.generated))
-                r.metrics.decode_steps += 1
-                reason = self._emit(r, nxt, events)
-                # the fed token's KV is now material through pos_next + 1
-                self.block_mgr.commit(
-                    r.rid, r.prompt_total + len(r.generated) - 1)
-                self._extend(r, nxt)
-                if reason is not None:
-                    self._finish(r, reason)
+            with telemetry.span("engine.sample"):
+                greedy = None
+                if any(r.params.greedy for r in reqs):
+                    telemetry.count("host_sync")
+                    greedy = torch.argmax(h[:, 0], dim=-1).tolist()
+                toks = [int(greedy[r.slot]) if r.params.greedy
+                        else sample_token(h[r.slot, 0], r.params,
+                                          len(r.generated))
+                        for r in reqs]
+            with telemetry.span("engine.emit"):
+                self._emit_decodes(reqs, toks, events)
         return StepOutput(self.steps, tuple(events),
                           tuple(r.rid for r in self.finished[n_done:]),
                           len(self.active()), sched.num_queued(),
@@ -495,75 +527,70 @@ class Engine:
                          else self.prefill_chunk)
         preempted_rids: List[int] = []
         pending: List[PrefillAssignment] = []
-        while True:
-            plan = sched.schedule()
-            for req, slot in plan.preempted:
-                preempted_rids.append(req.rid)
-                self.runner.clear_row(slot)
-                self.runner.clear_slot(slot)
+        with telemetry.span("engine.schedule"):
+            while True:
+                plan = self._plan(preempted_rids)
                 # a deferred chunk whose request just lost its slot and
                 # blocks must not execute: the launch would write into
                 # freed (possibly re-allocated) pages
-                pending = [pa for pa in pending if pa.req.rid != req.rid]
-            for req in plan.admitted:
-                self.runner.set_row(req.slot,
-                                    self.block_mgr.tables[req.rid].blocks)
-            self._apply_restores(plan.admitted)
-            self._apply_copies()
-            for pa in plan.prefills:
-                pa.req.prefilled = pa.start + pa.n
-                pending.append(pa)
-            if plan.idle:
-                break
+                lost = {req.rid for req, _ in plan.preempted}
+                pending = [pa for pa in pending if pa.req.rid not in lost]
+                for pa in plan.prefills:
+                    pa.req.prefilled = pa.start + pa.n
+                    pending.append(pa)
+                if plan.idle:
+                    break
 
-        # ---- launch 1: pending chunks + already-decoding requests
-        # merge a request's chunks (contiguous by construction) into one
-        # segment; keep first-assignment order for emission parity
-        chunks = {}                       # rid -> [req, tokens, start]
-        order: List[int] = []
-        for pa in pending:
-            tok = list(pa.req.chain()[pa.start:pa.start + pa.n])
-            self._step_prefill_tokens += pa.n
-            if pa.req.rid in chunks:
-                ent = chunks[pa.req.rid]
-                if ent[2] + len(ent[1]) != pa.start:
-                    raise KVInvariantError(
-                        f"non-contiguous fused prefill chunks for request "
-                        f"{pa.req.rid}: have [{ent[2]}, "
-                        f"{ent[2] + len(ent[1])}), next starts {pa.start}")
-                ent[1].extend(tok)
-            else:
-                chunks[pa.req.rid] = [pa.req, tok, pa.start]
-                order.append(pa.req.rid)
-        pending_rids = set(order)
-        decs = list(plan.decodes)
-        old_decodes = [r for r in decs if r.rid not in pending_rids]
-        segments = []
-        seg_of = {}
-        for rid in order:
-            req, tok, start = chunks[rid]
-            seg_of[rid] = len(segments)
-            segments.append((req.slot, tok, start))
-        for r in old_decodes:
-            seg_of[r.rid] = len(segments)
-            segments.append((r.slot, [r.generated[-1]], r.pos_next))
+            # ---- launch 1: pending chunks + already-decoding requests
+            # merge a request's chunks (contiguous by construction) into
+            # one segment; keep first-assignment order for emission parity
+            chunks = {}                   # rid -> [req, tokens, start]
+            order: List[int] = []
+            for pa in pending:
+                tok = list(pa.req.chain()[pa.start:pa.start + pa.n])
+                self._step_prefill_tokens += pa.n
+                if pa.req.rid in chunks:
+                    ent = chunks[pa.req.rid]
+                    if ent[2] + len(ent[1]) != pa.start:
+                        raise KVInvariantError(
+                            f"non-contiguous fused prefill chunks for "
+                            f"request {pa.req.rid}: have [{ent[2]}, "
+                            f"{ent[2] + len(ent[1])}), next starts "
+                            f"{pa.start}")
+                    ent[1].extend(tok)
+                else:
+                    chunks[pa.req.rid] = [pa.req, tok, pa.start]
+                    order.append(pa.req.rid)
+            pending_rids = set(order)
+            decs = list(plan.decodes)
+            old_decodes = [r for r in decs if r.rid not in pending_rids]
+            segments = []
+            seg_of = {}
+            for rid in order:
+                req, tok, start = chunks[rid]
+                seg_of[rid] = len(segments)
+                segments.append((req.slot, tok, start))
+            for r in old_decodes:
+                seg_of[r.rid] = len(segments)
+                segments.append((r.slot, [r.generated[-1]], r.pos_next))
         h1 = self.runner.forward_batch(segments) if segments else None
 
         # ---- prefill lifecycle effects, in plan order
-        for rid in order:
-            req = chunks[rid][0]
-            self.block_mgr.commit(req.rid, req.prefilled)
-            if not req.prefill_done:
-                continue
-            if not req.generated:         # first admission: emit token 0
-                req.metrics.admit_step = self.steps
-                first = sample_token(h1[seg_of[rid]], req.params, 0)
-                reason = self._emit(req, first, events)
-                self._extend(req, first)
-                if reason is not None:
-                    self._finish(req, reason)
-            else:                         # resume: decode re-feeds the tail
-                self._extend(req, req.generated[-1])
+        fresh = [chunks[rid][0] for rid in order]
+        fresh = [r for r in fresh if r.prefill_done and not r.generated]
+        with telemetry.span("engine.sample"):
+            firsts = {r.rid: sample_token(h1[seg_of[r.rid]], r.params, 0)
+                      for r in fresh}
+        with telemetry.span("engine.emit"):
+            for rid in order:
+                req = chunks[rid][0]
+                self.block_mgr.commit(req.rid, req.prefilled)
+                if not req.prefill_done:
+                    continue
+                if rid in firsts:         # first admission: emit token 0
+                    self._emit_first(req, firsts[rid], events)
+                else:                     # resume: decode re-feeds the tail
+                    self._extend(req, req.generated[-1])
 
         # ---- launch 2: requests whose prefill completed this step decode
         # their freshly sampled / re-fed token
@@ -579,22 +606,14 @@ class Engine:
             h2 = self.runner.forward_batch(segs2)
 
         # ---- decode emissions, in plan.decodes order (legacy parity)
-        for r in decs:
-            if r.done:
-                continue
-            logits = (h2[idx2[r.rid]] if r.rid in pending_rids
-                      else h1[seg_of[r.rid]])
-            if r.params.greedy:
-                nxt = int(torch.argmax(logits))
-            else:
-                nxt = sample_token(logits, r.params, len(r.generated))
-            r.metrics.decode_steps += 1
-            reason = self._emit(r, nxt, events)
-            self.block_mgr.commit(
-                r.rid, r.prompt_total + len(r.generated) - 1)
-            self._extend(r, nxt)
-            if reason is not None:
-                self._finish(r, reason)
+        live = [r for r in decs if not r.done]
+        with telemetry.span("engine.sample"):
+            toks = [sample_token(h2[idx2[r.rid]] if r.rid in pending_rids
+                                 else h1[seg_of[r.rid]], r.params,
+                                 len(r.generated))
+                    for r in live]
+        with telemetry.span("engine.emit"):
+            self._emit_decodes(live, toks, events)
         return StepOutput(self.steps, tuple(events),
                           tuple(r.rid for r in self.finished[n_done:]),
                           len(self.active()), sched.num_queued(),
@@ -606,6 +625,7 @@ class Engine:
         req.done = True
         req.finish_reason = reason
         req.metrics.finish_step = self.steps
+        req.metrics.finish_t = telemetry.now()
         self.scheduler.release(req)
         self.runner.clear_row(slot)
         self.runner.clear_slot(slot)

@@ -32,6 +32,7 @@ from typing import Iterable, List, Sequence
 import numpy as np
 import torch
 
+from repro_torch import telemetry
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ragged_attention import TILE_Q
 from repro_torch.models import transformer
@@ -71,7 +72,12 @@ class ModelRunner:
         self._masked_dev = (None, None)
 
     def _to_dev(self, a) -> torch.Tensor:
-        return torch.tensor(np.asarray(a), device=self.device)
+        """A host array uploaded: a pageable copy, which waits for the
+        card's stream (counted as ``host_sync``)."""
+        a = np.asarray(a)
+        telemetry.count("host_sync")
+        telemetry.count("upload_bytes", a.nbytes)
+        return torch.tensor(a, device=self.device)
 
     # --------------------------------------------------- block-table rows
     def set_row(self, slot: int, blocks: Sequence[int]):
@@ -137,16 +143,19 @@ class ModelRunner:
                                    "layout of an attention-only model")
         if self.tracer is not None:
             self.tracer.on_prefill(slot, start, n)
-        prefix = None
-        if prefix_embeds is not None:
-            prefix = torch.as_tensor(prefix_embeds).to(self.device)[None]
-        h = self._to_dev(np.asarray([list(tokens)], np.int32))
-        positions = self._to_dev(np.arange(start, start + n,
-                                           dtype=np.int32)[None])
-        bt = self._tables()[slot:slot + 1] if self.paged else None
-        for w in self.workers:
-            h = w.prefill_slot(h, slot, positions, block_tables=bt,
-                               prefix_embeds=prefix)
+        with telemetry.span("runner.inputs"):
+            prefix = None
+            if prefix_embeds is not None:
+                prefix = torch.as_tensor(prefix_embeds).to(
+                    self.device)[None]
+            h = self._to_dev(np.asarray([list(tokens)], np.int32))
+            positions = self._to_dev(np.arange(start, start + n,
+                                               dtype=np.int32)[None])
+            bt = self._tables()[slot:slot + 1] if self.paged else None
+        with telemetry.span("runner.forward"):
+            for w in self.workers:
+                h = w.prefill_slot(h, slot, positions, block_tables=bt,
+                                   prefix_embeds=prefix)
         return h
 
     def decode(self, reqs: Sequence, skip_slots: Sequence[int] = ()):
@@ -157,26 +166,28 @@ class ModelRunner:
         if self.tracer is not None:
             self.tracer.on_decode([(r.slot, r.pos_next) for r in reqs],
                                   list(skip_slots))
-        tokens = np.zeros((self.max_batch, 1), np.int32)
-        positions = np.zeros((self.max_batch, 1), np.int32)
-        for r in reqs:
-            tokens[r.slot, 0] = r.generated[-1]
-            positions[r.slot, 0] = r.pos_next
-        if not self.paged:
-            bt = None
-        elif skip_slots:
-            key = frozenset(skip_slots)
-            if self._masked_dev[0] != key:
-                masked = self._bt.copy()
-                masked[list(skip_slots)] = self._null_page
-                self._masked_dev = (key, self._to_dev(masked))
-            bt = self._masked_dev[1]
-        else:
-            bt = self._tables()
-        h = self._to_dev(tokens)
-        pos = self._to_dev(positions)
-        for w in self.workers:
-            h = w.decode(h, pos, block_tables=bt)
+        with telemetry.span("runner.inputs"):
+            tokens = np.zeros((self.max_batch, 1), np.int32)
+            positions = np.zeros((self.max_batch, 1), np.int32)
+            for r in reqs:
+                tokens[r.slot, 0] = r.generated[-1]
+                positions[r.slot, 0] = r.pos_next
+            if not self.paged:
+                bt = None
+            elif skip_slots:
+                key = frozenset(skip_slots)
+                if self._masked_dev[0] != key:
+                    masked = self._bt.copy()
+                    masked[list(skip_slots)] = self._null_page
+                    self._masked_dev = (key, self._to_dev(masked))
+                bt = self._masked_dev[1]
+            else:
+                bt = self._tables()
+            h = self._to_dev(tokens)
+            pos = self._to_dev(positions)
+        with telemetry.span("runner.forward"):
+            for w in self.workers:
+                h = w.decode(h, pos, block_tables=bt)
         return h
 
     def forward_batch(self, segments: Sequence):
@@ -197,38 +208,41 @@ class ModelRunner:
         if self.tracer is not None:
             self.tracer.on_forward_batch(
                 [(s, len(tk), p0) for s, tk, p0 in segments])
-        tq = TILE_Q
-        toks: List[int] = []
-        poss: List[int] = []
-        rows: List[int] = []
-        out_idx = [0] * self.max_batch
-        for i, (slot, tokens, pos0) in enumerate(segments):
-            n = len(tokens)
-            na = -(-n // tq) * tq
-            out_idx[i] = len(toks) + n - 1
-            toks.extend(int(t) for t in tokens)
-            toks.extend([0] * (na - n))
-            poss.extend(range(pos0, pos0 + n))
-            poss.extend([-1] * (na - n))
-            # pad rows inside a segment's aligned span keep its slot so
-            # `row` stays constant per tile (the kernel's layout contract)
-            rows.extend([slot] * na)
-        t = len(toks)
-        tb = tq
-        while tb < t:
-            tb *= 2
-        toks.extend([0] * (tb - t))
-        poss.extend([-1] * (tb - t))
-        rows.extend([0] * (tb - t))
-        x = self._to_dev(np.asarray([toks], np.int32))
-        pos = self._to_dev(np.asarray([poss], np.int32))
-        row = self._to_dev(np.asarray(rows, np.int32))
-        valid = pos[0] >= 0
-        oi = self._to_dev(np.asarray(out_idx, np.int32))
-        bt = self._tables()
-        h = x
-        for w in self.workers:
-            h = w.forward_ragged(h, pos, row, valid, bt, oi)
+        with telemetry.span("runner.inputs"):
+            tq = TILE_Q
+            toks: List[int] = []
+            poss: List[int] = []
+            rows: List[int] = []
+            out_idx = [0] * self.max_batch
+            for i, (slot, tokens, pos0) in enumerate(segments):
+                n = len(tokens)
+                na = -(-n // tq) * tq
+                out_idx[i] = len(toks) + n - 1
+                toks.extend(int(t) for t in tokens)
+                toks.extend([0] * (na - n))
+                poss.extend(range(pos0, pos0 + n))
+                poss.extend([-1] * (na - n))
+                # pad rows inside a segment's aligned span keep its slot
+                # so `row` stays constant per tile (the kernel's layout
+                # contract)
+                rows.extend([slot] * na)
+            t = len(toks)
+            tb = tq
+            while tb < t:
+                tb *= 2
+            toks.extend([0] * (tb - t))
+            poss.extend([-1] * (tb - t))
+            rows.extend([0] * (tb - t))
+            x = self._to_dev(np.asarray([toks], np.int32))
+            pos = self._to_dev(np.asarray([poss], np.int32))
+            row = self._to_dev(np.asarray(rows, np.int32))
+            valid = pos[0] >= 0
+            oi = self._to_dev(np.asarray(out_idx, np.int32))
+            bt = self._tables()
+        with telemetry.span("runner.forward"):
+            h = x
+            for w in self.workers:
+                h = w.forward_ragged(h, pos, row, valid, bt, oi)
         return h[0]
 
     # -------------------------------------------------------- maintenance
@@ -242,7 +256,10 @@ class ModelRunner:
         independent payload: ordered (cache_slot_name, k, v) triples whose
         page tensors are concatenated over the stages along the period
         axis. Quantized pools append a 4th element per entry: a dict of
-        the scale/zero leaves, concatenated the same way."""
+        the scale/zero leaves, concatenated the same way. The pages are
+        copied to the host, so the host waits for the card (one
+        ``host_sync``)."""
+        telemetry.count("host_sync")
         out = []
         for name, sub in self.workers[0].cache.items():
             if "k_pages" not in sub:

@@ -26,8 +26,10 @@ Under matched bandwidths the measured spans converge to
 within 5% by tests and the fig8/fig9 ``--real-loader`` cross-checks.
 
 The record's spans are the simulated clock's, exactly the reference's:
-the host-to-device copies' own wall time is not in them (``chip_smoke.py``
-times those separately, around ``materialize()``).
+the reads' and the host-to-device copies' own wall time is not in them.
+That is in the wall-clock ``telemetry`` spans ``load.read`` and
+``load.copy``, one each a chunk range, and ``load.bytes`` counts the
+copies' bytes.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import telemetry
 from repro_torch.core.coldstart import OverlapFlags, WorkerTimeline
 from repro_torch.core.types import TimingProfile
 from repro_torch.device import resolve_device
@@ -248,10 +251,13 @@ class _PendingStage:
             arrive_begin = flow.time_at_bytes(cum)
             cum += sc.length
             arrive_end = flow.time_at_bytes(cum)
-            data = ld.store.read_range(sc.chunk, sc.offset, sc.length,
-                                       tier=ld.tier_name)
-            leaves[sc.chunk.path] = to_device(data, sc.chunk.dtype, sc.shape,
-                                              ld.device)
+            with telemetry.span("load.read"):
+                data = ld.store.read_range(sc.chunk, sc.offset, sc.length,
+                                           tier=ld.tier_name)
+            with telemetry.span("load.copy"):
+                leaves[sc.chunk.path] = to_device(data, sc.chunk.dtype,
+                                                  sc.shape, ld.device)
+            telemetry.count("load.bytes", data.nbytes)
             if flags.stream:
                 # DMA chases the arrival stream: it can start on the
                 # tensor's first byte and finishes no earlier than its
