@@ -30,13 +30,26 @@ the reads' and the host-to-device copies' own wall time is not in them.
 That is in the wall-clock ``telemetry`` spans ``load.read`` and
 ``load.copy``, one each a chunk range, and ``load.bytes`` counts the
 copies' bytes.
+
+The copy leg depends on the device. On the CPU each range is one copy
+(``to_device``). On the card a stage's ranges stream through a ring of
+page-locked host slots (``ring_plan``): the host fills the next slot from
+the tier's buffer while the slot before it goes to the leaf's tensor on a
+copy stream, and a slot is filled again only once the event after its
+last DMA has passed. There ``load.copy`` spans each range's fill and
+enqueue, and one more spans the stage's wait for the copy stream, so the
+leaves ``materialize()`` hands back are ready for any stream;
+``load.staged_bytes`` counts the bytes sent through the ring and
+``load.slot_waits`` the fills that found their slot's DMA unfinished.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -57,6 +70,118 @@ def to_device(data: np.ndarray, dtype: str, shape, device) -> torch.Tensor:
         data = data.view(np.int16)
     t = torch.from_numpy(data).view(torch_dtype(dtype)).reshape(shape)
     return t.to(device, copy=True)
+
+
+# The ring: on an H100's host the fill of a pinned slot from pageable
+# memory sets the pace, not the DMA (42-50 GB/s alone), and it is fastest
+# into a ring small enough to stay in the host's cache: 2 x 16 MiB moved
+# 31 GB/s, 4 x 16 or 2 x 64 MiB 18-20 (PERF.md §6).
+SLOT_BYTES = 16 << 20
+N_SLOTS = 2
+
+
+def ring_plan(lengths: Sequence[int], slot_bytes: int
+              ) -> List[List[Tuple[int, int, int, int]]]:
+    """Where the bytes of ranges of ``lengths`` go through a ring of
+    slots of ``slot_bytes``: per range, its pieces ``(fill, at, offset,
+    n)``, the ``n`` bytes from ``offset`` in the range copied to byte
+    ``at`` of the ``fill``-th slot filled. Ranges are packed back to back
+    in order: one longer than a slot spans consecutive fills, short ones
+    share a fill."""
+    plan, fill, at = [], 0, 0
+    for length in lengths:
+        pieces, off = [], 0
+        while off < length:
+            if at == slot_bytes:
+                fill, at = fill + 1, 0
+            n = min(length - off, slot_bytes - at)
+            pieces.append((fill, at, off, n))
+            off += n
+            at += n
+        plan.append(pieces)
+    return plan
+
+
+class _Ring:
+    """``N_SLOTS`` page-locked host slots of ``SLOT_BYTES``, a copy stream
+    onto one card, and for each slot the event recorded after its last
+    DMA. One per card per process (``_ring``): every cold start reuses
+    it, so the pinned memory is allocated once and is the ring alone."""
+
+    def __init__(self, device: torch.device):
+        buf = torch.empty(N_SLOTS * SLOT_BYTES, dtype=torch.uint8,
+                          pin_memory=True)
+        self.slots = [buf[i * SLOT_BYTES:(i + 1) * SLOT_BYTES]
+                      for i in range(N_SLOTS)]
+        self.drained = [torch.cuda.Event() for _ in range(N_SLOTS)]
+        self.stream = torch.cuda.Stream(device)
+        self.lock = threading.Lock()
+
+
+_RINGS: Dict[torch.device, _Ring] = {}
+
+
+def _ring(device: torch.device) -> _Ring:
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if device not in _RINGS:
+        _RINGS[device] = _Ring(device)
+    return _RINGS[device]
+
+
+class _RingStage:
+    """One stage's ranges, in plan order, through the card's ring: each
+    range's pieces are filled into the slots on the host and sent on the
+    copy stream into the leaf's tensor, allocated once on the card. The
+    ring is held from ``__enter__`` to ``__exit__``, which waits for the
+    copy stream (one more ``load.copy`` span)."""
+
+    def __init__(self, device: torch.device, lengths: Sequence[int]):
+        self.device = device
+        self.ring = _ring(device)
+        self.plan = iter(ring_plan(lengths, SLOT_BYTES))
+        self.fill = None
+
+    def __enter__(self):
+        self.ring.lock.acquire()
+        # the leaves' memory may come from tensors whose last readers are
+        # still queued on the allocating stream
+        self.ring.stream.wait_stream(torch.cuda.current_stream(self.device))
+        return self
+
+    def send(self, data: np.ndarray, dtype: str, shape) -> torch.Tensor:
+        out = torch.empty(shape, dtype=torch_dtype(dtype), device=self.device)
+        dst = out.view(-1).view(torch.uint8)
+        src = torch.from_numpy(data.view(np.uint8))
+        ring = self.ring
+        for fill, at, off, n in next(self.plan):
+            slot = fill % N_SLOTS
+            if fill != self.fill:
+                self._close()
+                if not ring.drained[slot].query():
+                    telemetry.count("load.slot_waits")
+                    ring.drained[slot].synchronize()
+                self.fill = fill
+            ring.slots[slot][at:at + n].copy_(src[off:off + n])
+            with torch.cuda.stream(ring.stream):
+                dst[off:off + n].copy_(ring.slots[slot][at:at + n],
+                                       non_blocking=True)
+        telemetry.count("load.staged_bytes", data.nbytes)
+        return out
+
+    def _close(self):
+        """The current fill's last DMA is queued: mark its slot."""
+        if self.fill is not None:
+            self.ring.drained[self.fill % N_SLOTS].record(self.ring.stream)
+
+    def __exit__(self, *exc):
+        try:
+            with telemetry.span("load.copy"):
+                self._close()
+                self.ring.stream.synchronize()
+        finally:
+            self.ring.lock.release()
+        return False
 
 
 @dataclass
@@ -247,29 +372,34 @@ class _PendingStage:
         leaves = {}
         tensors: List[TensorSpan] = []
         cum = 0
-        for sc in plan:
-            arrive_begin = flow.time_at_bytes(cum)
-            cum += sc.length
-            arrive_end = flow.time_at_bytes(cum)
-            with telemetry.span("load.read"):
-                data = ld.store.read_range(sc.chunk, sc.offset, sc.length,
-                                           tier=ld.tier_name)
-            with telemetry.span("load.copy"):
-                leaves[sc.chunk.path] = to_device(data, sc.chunk.dtype,
-                                                  sc.shape, ld.device)
-            telemetry.count("load.bytes", data.nbytes)
-            if flags.stream:
-                # DMA chases the arrival stream: it can start on the
-                # tensor's first byte and finishes no earlier than its
-                # last byte lands (and no faster than the PCIe leg)
-                t0 = max(cursor, arrive_begin)
-                t1 = max(arrive_end, t0 + sc.length / ld.load_bw)
-            else:
-                t0 = cursor
-                t1 = t0 + sc.length / ld.load_bw
-            tensors.append(TensorSpan(sc.chunk.key, sc.length,
-                                      arrive_begin, arrive_end, t0, t1))
-            cursor = t1
+        ring = (_RingStage(ld.device, [sc.length for sc in plan])
+                if ld.device.type == "cuda" else None)
+        with ring or contextlib.nullcontext():
+            for sc in plan:
+                arrive_begin = flow.time_at_bytes(cum)
+                cum += sc.length
+                arrive_end = flow.time_at_bytes(cum)
+                with telemetry.span("load.read"):
+                    data = ld.store.read_range(sc.chunk, sc.offset,
+                                               sc.length, tier=ld.tier_name)
+                with telemetry.span("load.copy"):
+                    leaves[sc.chunk.path] = (
+                        to_device(data, sc.chunk.dtype, sc.shape, ld.device)
+                        if ring is None
+                        else ring.send(data, sc.chunk.dtype, sc.shape))
+                telemetry.count("load.bytes", data.nbytes)
+                if flags.stream:
+                    # DMA chases the arrival stream: it can start on the
+                    # tensor's first byte and finishes no earlier than its
+                    # last byte lands (and no faster than the PCIe leg)
+                    t0 = max(cursor, arrive_begin)
+                    t1 = max(arrive_end, t0 + sc.length / ld.load_bw)
+                else:
+                    t0 = cursor
+                    t1 = t0 + sc.length / ld.load_bw
+                tensors.append(TensorSpan(sc.chunk.key, sc.length,
+                                          arrive_begin, arrive_end, t0, t1))
+                cursor = t1
         load_end = max(cursor, fetch_end) if not tensors else cursor
         spans["fetch"] = (flow.start, fetch_end)
         spans["load"] = (load_begin, load_end)

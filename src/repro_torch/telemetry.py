@@ -29,7 +29,8 @@ so that every moment of a step falls in one named phase:
 
 A cold start adds ``coldstart.plan`` (``ServerlessFrontend.
 begin_cold_start``), ``load.read`` and ``load.copy`` (each chunk range's
-store read and host-to-device copy, ``store/loader.py``) and
+store read and host-to-device copy, ``store/loader.py``; on the card one
+more ``load.copy`` a stage, its wait for the copy stream) and
 ``engine.build`` (``Engine.__init__``).
 
 Counters. Plain module-level ``dict[str, int]``, always on (an int add
@@ -38,7 +39,11 @@ points where the host reads or uploads through the card's stream and so
 waits for it (each ``ModelRunner._to_dev`` upload, each read of logits in
 sampling, each ``read_pages``; counted on every device, so the CPU counts
 the same points); ``upload_bytes``, the bytes of those uploads;
-``load.bytes``, the bytes the ``load.copy`` spans moved. They are running
+``load.bytes``, the bytes the ``load.copy`` spans moved;
+``load.staged_bytes``, those of them sent through the card's ring of
+page-locked slots (all of them on the card, none on the CPU), and
+``load.slot_waits``, the ring's fills that found their slot's DMA still
+unfinished (the DMA, not the host's fill, set the pace). They are running
 totals, never reset: a window's count is the difference of two readings.
 ``counters()`` returns them with ``kernels.ops.launch_counts()``, one
 read-out for both.
@@ -55,7 +60,8 @@ now = time.perf_counter
 _ON = False
 _SPANS: List[Tuple[str, float, float]] = []
 COUNTS: Dict[str, int] = {"host_sync": 0, "upload_bytes": 0,
-                          "load.bytes": 0}
+                          "load.bytes": 0, "load.staged_bytes": 0,
+                          "load.slot_waits": 0}
 
 
 class _Off:

@@ -6,7 +6,9 @@ qwen2-moe, jamba and llava's image prefixes) and whisper's prefill and
 decode against the CPU; the attention kernels also at whisper-small's
 shapes (hd 64 at GQA group 1, non-causal over 1,500 keys, one query row
 over them) and llava-next-34b's (GQA group 7); the manual-TP and pipelined
-prefills on a one-rank NCCL group against the CPU. Every test needs
+prefills on a one-rank NCCL group against the CPU; a cold start's stage
+loaded through the loader's ring of pinned slots against the CPU's
+per-leaf copies, bit for bit. Every test needs
 a CUDA card (marker ``cuda``) and skips without one. The file imports
 neither JAX nor the reference package, so it runs where only the port's
 dependencies are installed:
@@ -1228,6 +1230,89 @@ def test_cuda_contiguous_engine_matches_cpu(cuda):
     counts = ops.launch_counts()
     assert counts["flash_attention"] > 0 and counts["decode_attention"] > 0
     assert counts["ragged_paged_attention"] == 0
+    assert streams[0] == streams[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_cuda_cold_start_streams_through_the_ring(cuda, monkeypatch, dtype):
+    """A cold start on the card sends its stage's bytes through the
+    loader's ring of page-locked slots, here of 3,001 bytes: the largest
+    leaf spans many fills, norms share one, elements cross a slot's edge.
+    Its leaves equal the CPU path's bit for bit, ``load.staged_bytes``
+    moves as ``load.bytes`` does (the CPU's moves neither ring counter), a
+    second cold start reuses the ring and its pinned slots, and the
+    endpoint serves the greedy tokens of one on the card built from the
+    CPU path's leaves."""
+    import dataclasses
+    from repro_torch import telemetry
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.core import (GB, Gbps, ModelProfile, SLO, ServerSpec,
+                                  TimingProfile)
+    from repro_torch.models.model import Model
+    from repro_torch.serving.api import SamplingParams
+    from repro_torch.serving.endpoint import (ServerlessFrontend,
+                                              ServingEndpoint)
+    from repro_torch.serving.engine import Engine
+    from repro_torch.store import ModelStore, loader
+    from repro_torch.store.manifest import flatten_with_paths
+    monkeypatch.setattr(loader, "SLOT_BYTES", 3001)
+    monkeypatch.setattr(loader, "_RINGS", {})
+    cfg = dataclasses.replace(smoke_variant(get_config("granite-3-8b")),
+                              dtype=dtype)
+    params = Model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    store = ModelStore.from_params(Model(cfg), params)
+    kw = dict(max_batch=2, max_seq=32, block_size=8)
+
+    def cold_start(dev):
+        front = ServerlessFrontend(
+            {"srv0": ServerSpec("srv0", 16 * Gbps, 12e9, 24 * GB)},
+            device=dev)
+        front.deploy(cfg, params, ModelProfile(cfg.name, GB,
+                                               TimingProfile(),
+                                               SLO(60.0, 1.0)), store=store)
+        c0 = telemetry.counters()
+        pend = front.begin_cold_start(cfg.name, **kw)
+        ep = pend.finish()
+        c1 = telemetry.counters()
+        n = pend.n_stages
+        assert max(sc.length for i in range(n)
+                   for sc in store.stage_plan(n, i)) > loader.SLOT_BYTES
+        moved = {k: c1[k] - c0[k] for k in c0}
+        assert moved["load.bytes"] == sum(store.stage_bytes(n, i)
+                                          for i in range(n))
+        return ep, moved
+
+    card, moved = cold_start(cuda)
+    assert moved["load.staged_bytes"] == moved["load.bytes"]
+    (ring,) = loader._RINGS.values()
+    ptrs = [s.data_ptr() for s in ring.slots]
+    host, moved = cold_start("cpu")
+    assert moved["load.staged_bytes"] == moved["load.slot_waits"] == 0
+    again, moved = cold_start(cuda)
+    assert moved["load.staged_bytes"] == moved["load.bytes"]
+    assert list(loader._RINGS.values()) == [ring]
+    assert [s.data_ptr() for s in ring.slots] == ptrs
+
+    stages = [flatten_with_paths(w.params) for w in card.engine.workers]
+    want = [flatten_with_paths(w.params) for w in host.engine.workers]
+    assert [s.keys() for s in stages] == [s.keys() for s in want]
+    for got, cpu_leaves in zip(stages, want):
+        for path, t in got.items():
+            w = cpu_leaves[path]
+            assert t.device.type == "cuda" and t.dtype == w.dtype
+            assert t.shape == w.shape
+            assert torch.equal(t.cpu().reshape(-1).view(torch.uint8),
+                               w.reshape(-1).view(torch.uint8))
+    moved_ep = ServingEndpoint(Engine(
+        cfg, [_tree_to(w.params, cuda) for w in host.engine.workers],
+        device=cuda, **kw))
+    prompts = [[1, 2, 3, 4, 5, 6, 7], [9, 8, 7, 6, 5]]
+    streams = []
+    for ep in (card, moved_ep):
+        reqs = [ep.submit(p, SamplingParams(max_new=5)) for p in prompts]
+        ep.run()
+        streams.append([list(r.generated) for r in reqs])
     assert streams[0] == streams[1]
 
 

@@ -3,8 +3,9 @@ engine on the CPU: off by default and then silent; on, a serving step is
 tiled by its five flat phases on every path (paged, fused, a chunked
 prefill beside a decode); ``drain`` empties the buffer; the request
 stamps are ordered; a cold start from a ``ModelStore.from_params`` store
-spans each planned range's read and copy; ``host_sync`` counts a decode
-step's uploads and logit reads."""
+spans each planned range's read and copy, and sends nothing through the
+card's ring of pinned slots; ``host_sync`` counts a decode step's uploads
+and logit reads."""
 
 import subprocess
 import sys
@@ -86,7 +87,8 @@ def test_drain_empties_the_buffer(on):
     spans, counts = telemetry.drain()
     assert [s[0] for s in spans] == ["a"]
     assert set(ops.launch_counts()) <= set(counts)
-    assert {"host_sync", "upload_bytes", "load.bytes"} <= set(counts)
+    assert {"host_sync", "upload_bytes", "load.bytes", "load.staged_bytes",
+            "load.slot_waits"} <= set(counts)
     assert telemetry.drain()[0] == []
 
 
@@ -149,7 +151,7 @@ def test_cold_start_spans_each_planned_range(granite, on):
     store = front.deploy(cfg, params, ModelProfile(cfg.name, GB,
                                                    TimingProfile(),
                                                    SLO(60.0, 1.0)))
-    before = telemetry.counters()["load.bytes"]
+    before = telemetry.counters()
     telemetry.drain()
     pend = front.begin_cold_start(cfg.name, max_seq=32, block_size=8)
     pend.finish()
@@ -160,8 +162,11 @@ def test_cold_start_spans_each_planned_range(granite, on):
     assert names[0] == "coldstart.plan" and names[-1] == "engine.build"
     assert names[1:-1] == ["load.read", "load.copy"] * ranges
     _flat_in_order(spans)
-    assert counts["load.bytes"] - before == sum(
+    assert counts["load.bytes"] - before["load.bytes"] == sum(
         store.stage_bytes(n, i) for i in range(n))
+    # the CPU copies each range itself: nothing goes through the card's ring
+    for name in ("load.staged_bytes", "load.slot_waits"):
+        assert counts[name] == before[name]
 
 
 def test_host_sync_counts_a_decode_steps_uploads_and_reads(granite):
