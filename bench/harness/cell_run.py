@@ -8,7 +8,7 @@ import contextlib
 import gc
 import math
 import time
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -18,7 +18,7 @@ from bench.harness import weights as W
 from bench.harness.calls import CallCounter
 from bench.harness.drive import Loop, cold_bursts, open_loop, release
 from bench.harness.record import Record
-from bench.harness.spec import Cell, port_config
+from bench.harness.spec import Cell, architecture, port_config
 from bench.harness.trace import Tracer, breakdown
 
 
@@ -48,14 +48,20 @@ def _settle():
     gc.freeze()
 
 
-def _materialize_timer(rec):
+def _materialize_timer(rec, device):
+    on_card = torch.device(device).type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
     def timed(pend, cr):
         for st in pend.stages:
             def run(orig=st.materialize):
-                torch.cuda.synchronize()
+                sync()
                 a = time.perf_counter()
                 sp, r = orig()
-                torch.cuda.synchronize()
+                sync()
                 b = time.perf_counter()
                 cr.materialize_s += b - a
                 cr.bytes += sum(t.numel() * t.element_size()
@@ -87,24 +93,40 @@ def _landed(ep, arch, seed, device):
 
 @contextlib.contextmanager
 def _window(trace: bool, counter, tracer):
-    """The traced run's call counting around the window; a profile left
-    open by a failure is closed before the failure goes on."""
-    if not trace:
-        yield
-        return
+    """The traced run's call counting around the window; a profile and
+    the port's telemetry left on by a failure are closed before the
+    failure goes on."""
+    from repro_torch import telemetry
     try:
-        with counter.ops_wrapped():
+        if trace:
+            with counter.ops_wrapped():
+                yield
+        else:
             yield
     except BaseException:
-        tracer.abort()
+        if trace:
+            tracer.abort()
+        telemetry.disable()
         raise
 
 
+def _admissions(engine):
+    """(submit_t, admitted_t) of every request the engine holds."""
+    reqs = (engine.finished + engine.active()
+            + list(engine.scheduler.waiting)
+            + list(engine.scheduler.preempted))
+    return [(r.metrics.submit_t, r.metrics.admitted_t) for r in reqs]
+
+
 def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
-        t_start: float, guard: Callable[[], None], keep: bool = False):
+        t_start: float, guard: Callable[[], None], keep: bool = False,
+        port_telemetry: Optional[bool] = None):
     """Returns (record, checks, device info, kept): ``kept`` holds the
     checked sample, its prompts and the reference's weights when
-    ``keep`` (the control's readings take them), else None."""
+    ``keep`` (the control's readings take them), else None. The port's
+    telemetry is on over the window of a traced run only, unless
+    ``port_telemetry`` says otherwise (``bench/tools/phases.py``)."""
+    from repro_torch import telemetry
     from repro_torch.serving.api import SamplingParams
     arch = cell.arch
     cfg = port_config(arch)
@@ -112,10 +134,16 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
     loop = Loop(rec, SamplingParams)
     tracer = Tracer(device) if trace else None
     counter = CallCounter(arch, rec) if trace else None
+    spans_on = trace if port_telemetry is None else port_telemetry
+    counts0 = {}
     own = cell.own
     kind = cell.traffic["kind"]
 
     def on_open():
+        if spans_on:
+            telemetry.drain()
+            telemetry.enable()
+            counts0.update(telemetry.counters())
         if trace:
             counter.on = True
             tracer.start()
@@ -139,6 +167,8 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
         rec.t_close = rec.t_open + seconds
         with _window(trace, counter, tracer):
             open_loop(ep, loop, sched, rec.t_open, seconds, on_open)
+        if spans_on:
+            rec.admissions = _admissions(ep.engine)
         bad_leaves = None
     elif kind == "cold_bursts":
         from repro_torch.core.types import (Gbps, GB, ModelProfile, SLO,
@@ -168,10 +198,10 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
         _settle()
         rec.t_open = time.perf_counter()
         rec.t_close = rec.t_open + seconds
+        timed = _materialize_timer(rec, device) if trace else None
         with _window(trace, counter, tracer):
             ep = cold_bursts(front, cfg.name, kw, loop, bursts, rec.t_open,
-                             seconds, on_open,
-                             timed=_materialize_timer(rec) if trace else None,
+                             seconds, on_open, timed=timed,
                              on_endpoint=((lambda e: counter.wrap_runner(
                                  e.engine.runner)) if trace else None))
     else:
@@ -181,6 +211,10 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
         counter.on = False
         tracer.stop(rec)
         rec.extra["trace_in_window"] = float(len(rec.device_events))
+    if spans_on:
+        rec.port_spans, counts = telemetry.drain()
+        rec.counters = {k: v - counts0.get(k, 0) for k, v in counts.items()}
+        telemetry.disable()
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
     dev_info = device_info(device)
@@ -192,7 +226,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
         if ep is None:          # the window closed between two bursts
             ep = front.begin_cold_start(cfg.name, **kw).finish()
         bad_leaves, weights = _landed(ep, arch, seed, device)
-    rec.memory = memory_held(arch, rec, ep.stats()["total_blocks"])
+    rec.memory = memory_held(arch, rec, ep.stats())
     ep = None
     release()
     picked = C.sample(finished, int(own["correct"]["sample"]), seed)
@@ -205,23 +239,15 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device,
     return rec, checks, dev_info, kept
 
 
-def memory_held(arch: dict, rec: Record, pool_blocks: int) -> dict:
+def memory_held(arch: dict, rec: Record, engine_stats: dict) -> dict:
     """The weights' bytes, the KV pool's as reserved, and the K/V bytes of
-    the most pages held after any step of the window: the memory the
-    deployment really holds, beside the allocator's peak, which counts the
-    whole pool."""
-    itemsize = W.dtype_of(arch).itemsize
-    hkv = arch["num_key_value_heads"]
-    hd = arch.get("head_dim") or (arch["hidden_size"]
-                                  // arch["num_attention_heads"])
-    block = (arch["engine"]["block_size"] * 2 * hkv * hd * itemsize
-             * arch["num_hidden_layers"])
+    the most pages held after any step of the window (the architecture
+    module's count; ``engine_stats``: the endpoint's ``stats()``): the
+    memory the deployment really holds, beside the allocator's peak,
+    which counts the whole pool."""
     held = max((s.kv_blocks for s in rec.steps if rec.in_window(s.t0)),
                default=0)
-    return {"weights_bytes": sum(itemsize * math.prod(shape) for shape, _, _
-                                 in W.layout(arch).values()),
-            "kv_pool_bytes": pool_blocks * block,
-            "kv_live_peak_bytes": held * block}
+    return architecture(arch).memory(arch, engine_stats, held)
 
 
 def device_info(device) -> dict:

@@ -3,7 +3,8 @@
 Once the window has closed and the program's state is freed, a sample of
 the requests the program finished in the window, drawn from the seed and
 holding the longest of them, goes through the plain float32 reference
-(``bench/reference/model.py``) once each, over its prompt and its served
+(``logits_at`` of the configuration's architecture module,
+``bench/reference/``) once each, over its prompt and its served
 tokens. At each served token the gap by which the reference's logit of
 that token lies below the reference's best is read; the widest gap over
 the sample is compared with the cell's limit (``correct.max_logit_gap``
@@ -17,7 +18,7 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
-from bench.reference import model as ref
+from bench.harness.spec import architecture
 
 
 def sample(finished: Sequence, k: int, seed: int) -> List:
@@ -39,6 +40,7 @@ def gaps(arch: dict, weights: dict, prompt: Sequence[int],
     """(reference gaps of the served tokens, and, with ``quant``, the
     reference gaps of the tokens that the quantized forward puts first at
     the same positions)."""
+    ref = architecture(arch)
     seq = list(prompt) + list(served[:-1])
     rows = list(range(len(prompt) - 1, len(seq)))
     lg = ref.logits_at(arch, weights, seq, rows)

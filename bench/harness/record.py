@@ -1,8 +1,9 @@
 """What a run records, for the metric readers: requests with their
 scheduled arrivals and token times, the engine's steps, the cold starts,
-the attention calls and model tokens (traced runs), and the device's
-intervals from the profiler (traced runs). Times are host seconds
-(``time.perf_counter``), with the window's opening at ``t_open``."""
+and in traced runs the kernel calls and model tokens, the port's own
+spans and counters, and the device's intervals from the profiler. Times
+are host seconds (``time.perf_counter``), with the window's opening at
+``t_open``."""
 
 from __future__ import annotations
 
@@ -55,10 +56,19 @@ class Record:
     # host spans (label, t0, t1): submit, step, wait, begin, materialize,
     # finish, drop
     spans: List[Tuple[str, float, float]] = field(default_factory=list)
-    # traced runs: per attention call (t_host, kernel family, bytes, flops)
+    # traced runs: per kernel call (t_host, kernel family, bytes, flops)
     calls: List[Tuple[float, str, float, float]] = field(default_factory=list)
     # traced runs: (t_host, model flops) per forward
     model_flops: List[Tuple[float, float]] = field(default_factory=list)
+    # traced runs: the port's own spans (``repro_torch.telemetry``), (name,
+    # t0, t1) on this clock, recorded from the window's opening to its
+    # close, and its counters' change over the same time
+    port_spans: List[Tuple[str, float, float]] = field(default_factory=list)
+    counters: Dict[str, int] = field(default_factory=dict)
+    # traced open-loop runs: (submit_t, admitted_t) of the ``RequestMetrics``
+    # of every request the engine held at the close
+    admissions: List[Tuple[Optional[float], Optional[float]]] = field(
+        default_factory=list)
     # traced runs: device activity mapped onto the host clock
     device_events: List[Tuple[str, float, float]] = field(
         default_factory=list)            # (name, start, end)

@@ -4,10 +4,13 @@
 ``file``; its traffic mix is ``bench/traffic/<traffic>.json``; its own
 numbers (the offered rate, the correctness limits) are
 ``bench/cells/<workload>.json``; each metric is read by
-``bench/metrics/<metric>.py``. Nothing here names a cell."""
+``bench/metrics/<metric>.py``; what depends on the model's shape is the
+architecture module the configuration file names
+(``bench/reference/``). Nothing here names a cell or an architecture."""
 
 from __future__ import annotations
 
+import importlib
 import importlib.util
 import json
 from dataclasses import dataclass, field
@@ -82,34 +85,15 @@ def load_cell(root, workload: str) -> Cell:
     return cell
 
 
+def architecture(arch: dict):
+    """The architecture module a configuration file names by its key
+    ``"reference"`` (``bench/reference/<name>.py``; ``model`` without
+    the key)."""
+    return importlib.import_module(
+        f"bench.reference.{arch.get('reference', 'model')}")
+
+
 def port_config(arch: dict):
-    """The port's ``ModelConfig`` for a configuration file: its Hugging
-    Face keys, as run, mapped onto the port's fields, and the ``port``
-    block for what those keys do not state."""
-    from repro_torch.configs.base import ModelConfig
-    port = arch["port"]
-    kw = dict(name=port["name"], family=port["family"],
-              n_layers=arch["num_hidden_layers"],
-              d_model=arch["hidden_size"],
-              n_heads=arch["num_attention_heads"],
-              n_kv_heads=arch["num_key_value_heads"],
-              vocab=arch["vocab_size"],
-              rope_theta=float(arch["rope_theta"]),
-              norm_eps=float(arch["rms_norm_eps"]),
-              tie_embeddings=bool(arch["tie_word_embeddings"]),
-              qkv_bias=bool(port.get("qkv_bias", False)),
-              dtype=arch["torch_dtype"])
-    if arch.get("head_dim"):
-        kw["head_dim"] = arch["head_dim"]
-    if arch.get("num_experts"):
-        eff = arch["moe_intermediate_size"]
-        kw.update(d_ff=eff, n_experts=arch["num_experts"],
-                  top_k=arch["num_experts_per_tok"], expert_d_ff=eff,
-                  n_shared_experts=arch["shared_expert_intermediate_size"]
-                  // eff,
-                  capacity_factor=float(port["capacity_factor"]),
-                  expert_sharding=port.get("expert_sharding", "expert"),
-                  mlp_pattern=("moe",))
-    else:
-        kw["d_ff"] = arch["intermediate_size"]
-    return ModelConfig(**kw)
+    """The port's ``ModelConfig`` for a configuration file (its
+    architecture module's mapping)."""
+    return architecture(arch).port_config(arch)

@@ -8,7 +8,12 @@ host's ``perf_counter`` by the wall clock read beside it, and refined by a
 marker: the card is synchronised, both clocks read, and
 ``torch.cuda._sleep`` launched; its kernel's start in the trace is that
 instant (to the launch latency, microseconds). A profile may miss the
-marker launched as it starts; the wall clock then maps alone."""
+marker launched as it starts; the wall clock then maps alone. On the CPU
+(the tests' runs) it takes no profile, and the record stays untraced.
+
+The breakdown labels each idle gap by the innermost span holding it: the
+harness's own (``rec.spans``) and the port's (``rec.port_spans``), so a
+gap inside a step goes to the step's phase it fell in."""
 
 from __future__ import annotations
 
@@ -45,6 +50,7 @@ def _events(prof):
 class Tracer:
     def __init__(self, device):
         self.device = device
+        self.on_card = torch.device(device).type == "cuda"
         self.prof = None
         self.marks: List[float] = []
         self.walls: List[float] = []
@@ -52,6 +58,8 @@ class Tracer:
     def warm(self):
         """One short profile in set-up, so that starting the window's
         costs no profiler initialisation."""
+        if not self.on_card:
+            return
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]):
             torch.zeros(16, device=self.device).add_(1)
@@ -64,6 +72,8 @@ class Tracer:
         torch.cuda._sleep(MARK_CYCLES)
 
     def start(self):
+        if not self.on_card:
+            return
         self.prof = torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA])
         self.prof.__enter__()
@@ -77,6 +87,8 @@ class Tracer:
     def stop(self, rec):
         """Close the profile and fill ``rec``'s device events and busy
         intervals (host clock, clipped to the window)."""
+        if not self.on_card:
+            return
         self._mark()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -162,7 +174,7 @@ def breakdown(rec, top: int = 10) -> dict:
         if a > prev:
             gaps.append((prev, a))
         prev = max(prev, b)
-    spans = sorted(rec.spans, key=lambda s: s[1])
+    spans = sorted(rec.spans + rec.port_spans, key=lambda s: s[1])
     starts = [s[1] for s in spans]
     idle = {}
     for a, b in gaps:

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import bisect
 import re
 
 
@@ -37,3 +38,61 @@ def idle_pct(rec):
     if not rec.traced or rec.window_s <= 0:
         return None
     return 100.0 * (1.0 - sum(b - a for a, b in rec.busy) / rec.window_s)
+
+
+# The port's own spans and counters (``repro_torch/telemetry.py``), which
+# a traced run records in ``rec.port_spans`` and ``rec.counters``: the
+# five phases that tile a serving step.
+STEP_PHASES = ("engine.schedule", "runner.inputs", "runner.forward",
+               "engine.sample", "engine.emit")
+
+
+def step_phases(rec, spans) -> dict:
+    """Mean ms a window step spends in each phase (the spans starting
+    inside it), the phases' share of those steps' wall time, and the mean
+    step wall time. Empty without a window step."""
+    steps = window_steps(rec)
+    if not steps:
+        return {}
+    spans = sorted(spans, key=lambda s: s[1])
+    starts = [s[1] for s in spans]
+    tot = dict.fromkeys(STEP_PHASES, 0.0)
+    for st in steps:
+        i = bisect.bisect_left(starts, st.t0)
+        while i < len(spans) and spans[i][1] < st.t1:
+            name, a, b = spans[i]
+            if name in tot:
+                tot[name] += b - a
+            i += 1
+    wall = sum(s.t1 - s.t0 for s in steps)
+    out = {f"{n}_ms_per_step": 1e3 * v / len(steps) for n, v in tot.items()}
+    out["phase_share_of_step"] = sum(tot.values()) / wall
+    out["step_wall_ms"] = 1e3 * wall / len(steps)
+    return out
+
+
+def step_phase_ms(rec, phase: str):
+    """Mean ms a window step spends in ``phase``; None without the port's
+    spans or a window step."""
+    if not rec.port_spans:
+        return None
+    return step_phases(rec, rec.port_spans).get(f"{phase}_ms_per_step")
+
+
+def queue_wait_ms(rec, admissions):
+    """Mean of admitted_t - submit_t over the (submit_t, admitted_t) of
+    the requests submitted in the window and admitted before it closed."""
+    w = [a - s for s, a in admissions
+         if s is not None and rec.in_window(s)
+         and a is not None and a < rec.t_close]
+    return 1e3 * sum(w) / len(w) if w else None
+
+
+def host_syncs_per_step(rec, counts):
+    steps = window_steps(rec)
+    return counts["host_sync"] / len(steps) if steps else None
+
+
+def load_copy_gbps(spans, counts):
+    s = sum(b - a for n, a, b in spans if n == "load.copy")
+    return counts["load.bytes"] / s / 1e9 if s > 0 else None

@@ -46,7 +46,9 @@ def guard():
         sys.exit(3)
 
 
-def main(argv=None) -> int:
+def main(argv=None, device: str = "cuda") -> int:
+    """The command. ``device`` is the card's; the tests give ``"cpu"``,
+    which skips the look for a card and runs the rest on the CPU."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seed", type=int, required=True)
@@ -66,14 +68,14 @@ def main(argv=None) -> int:
     from bench.harness import cell_run
     from bench.harness.spec import load_cell
     cell = load_cell(ROOT, args.workload)
-    if not torch.cuda.is_available() \
-            or torch.cuda.device_count() < cell.chips:
+    if device == "cuda" and (not torch.cuda.is_available()
+                             or torch.cuda.device_count() < cell.chips):
         print(f"run refused: the cell needs {cell.chips} CUDA card(s); "
               f"found {torch.cuda.device_count()}", file=sys.stderr)
         return 2
     guard()
     rec, checks, dev, _ = cell_run.run(cell, args.seed, args.seconds,
-                                       bool(args.trace), "cuda", T_START,
+                                       bool(args.trace), device, T_START,
                                        guard)
     out = cell_run.result(cell, rec, checks, dev, bool(args.trace))
     if rec.extra:

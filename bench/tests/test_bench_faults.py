@@ -5,6 +5,7 @@ out; a token altered where it is produced). One card: no exchange
 between chips to leave out."""
 
 import pytest
+import torch
 
 from bench.harness import cell_run
 from bench.tests.fixture import make_root
@@ -23,9 +24,12 @@ def _half_batch(monkeypatch):
     from repro_torch.kernels import ops
     orig = ops.paged_decode_attention
 
-    def half(q, *a, **k):
-        out = orig(q, *a, **k).clone()
-        out[0::2] = 0           # every other row, slot 0 among them
+    def half(q, k_pages, v_pages, block_tables, kv_len):
+        out = orig(q, k_pages, v_pages, block_tables, kv_len).clone()
+        # every other live row (an idle slot decodes at kv_len 1); slots
+        # are not filled from 0, so every other slot may miss them all
+        live = torch.nonzero(kv_len > 1).flatten()
+        out[live[0::2]] = 0
         return out
     monkeypatch.setattr(ops, "paged_decode_attention", half)
 

@@ -47,9 +47,11 @@ def test_tpot_over_requests_finished_in_the_window():
     assert reader("tpot_p75_ms")(rec10()) == pytest.approx(875.0)
 
 
-def test_output_rate_is_the_window_tokens_over_its_seconds():
+@pytest.mark.parametrize("name",
+                         ["output_tok_s", "output_tok_s.coldstart"])
+def test_output_rate_is_the_window_tokens_over_its_seconds(name):
     # window tokens: 10.5, 11.0 and the five of request 1
-    assert reader("output_tok_s")(rec10()) == pytest.approx(7 / 10.0)
+    assert reader(name)(rec10()) == pytest.approx(7 / 10.0)
 
 
 def test_setup_is_start_to_the_opening():
@@ -62,7 +64,7 @@ def test_cold_ttft_mean_over_cold_arrivals():
                      ReqRec(1, 1.0, 5, 2, cold=True, token_times=[3.5]),
                      ReqRec(2, 9.0, 5, 2, cold=True, token_times=[12.0]),
                      ReqRec(3, 0.5, 5, 2, cold=False, token_times=[0.6])]
-    assert reader("cold_ttft_s")(rec) == pytest.approx((2.5 + 2.5 + 3) / 3)
+    assert reader("cold_ttft_s.coldstart")(rec) == pytest.approx((2.5 + 2.5 + 3) / 3)
 
 
 def test_cold_start_layer_readers():
@@ -122,8 +124,36 @@ def test_readers_are_silent_without_a_trace():
     rec = rec10()
     for name in ("device_idle.serve", "host_ms_per_step.serve", "mfu.serve",
                  "ragged_paged_attention_roofline",
-                 "paged_decode_attention_roofline", "load_gbps.coldstart"):
+                 "paged_decode_attention_roofline", "load_gbps.coldstart",
+                 "queue_wait_ms.serve", "schedule_ms_per_step.serve",
+                 "dispatch_ms_per_step.serve", "sample_ms_per_step.serve",
+                 "host_syncs_per_step.serve", "load_copy_gbps.coldstart"):
         assert reader(name)(rec) is None
+
+
+def test_port_span_and_counter_readers():
+    rec = rec10()
+    rec.steps = [StepRec(9.0, 10.5, 0, 1, 0),       # begins before: out
+                 StepRec(11.0, 12.0, 0, 1, 0), StepRec(13.0, 14.0, 0, 1, 0)]
+    rec.port_spans = [("engine.schedule", 9.1, 9.2),
+                      ("runner.forward", 9.2, 10.4),
+                      ("engine.schedule", 11.0, 11.1),
+                      ("runner.forward", 11.2, 11.6),
+                      ("engine.sample", 11.6, 11.9),
+                      ("engine.schedule", 13.0, 13.2),
+                      ("runner.forward", 13.2, 13.8)]
+    rec.counters = {"host_sync": 9, "load.bytes": 0}
+    rec.admissions = [(9.0, 11.0), (11.0, 11.05), (12.0, 12.15),
+                      (19.0, None)]
+    assert reader("schedule_ms_per_step.serve")(rec) == pytest.approx(150.0)
+    assert reader("dispatch_ms_per_step.serve")(rec) == pytest.approx(500.0)
+    assert reader("sample_ms_per_step.serve")(rec) == pytest.approx(150.0)
+    assert reader("host_syncs_per_step.serve")(rec) == pytest.approx(4.5)
+    assert reader("queue_wait_ms.serve")(rec) == pytest.approx(100.0)
+    assert reader("load_copy_gbps.coldstart")(rec) is None
+    rec.port_spans += [("load.copy", 15.0, 15.5), ("load.copy", 16.0, 16.5)]
+    rec.counters["load.bytes"] = 3_000_000_000
+    assert reader("load_copy_gbps.coldstart")(rec) == pytest.approx(3.0)
 
 
 def test_breakdown_labels_idle_by_host_span():

@@ -3,13 +3,13 @@ breakdown's labels once the port's phases join the harness's spans, and
 a whole run of each kind of tiny cell on the CPU with telemetry on."""
 
 import time
-from types import SimpleNamespace
 
 import pytest
 
 from bench.harness import cell_run
 from bench.harness.record import Record, StepRec
 from bench.harness.trace import breakdown
+from bench.metrics import _common as M
 from bench.run import guard
 from bench.tests.fixture import make_root
 from bench.tools import phases as P
@@ -32,7 +32,7 @@ SPANS = [("engine.schedule", 9.1, 9.2), ("runner.forward", 9.2, 10.4),
 
 
 def test_step_phases_over_the_window_steps():
-    ph = P.step_phases(rec_steps(), SPANS)
+    ph = M.step_phases(rec_steps(), SPANS)
     assert ph["engine.schedule_ms_per_step"] == pytest.approx(150.0)
     assert ph["runner.forward_ms_per_step"] == pytest.approx(500.0)
     assert ph["runner.inputs_ms_per_step"] == pytest.approx(50.0)
@@ -40,27 +40,26 @@ def test_step_phases_over_the_window_steps():
     assert ph["engine.emit_ms_per_step"] == pytest.approx(50.0)
     assert ph["step_wall_ms"] == pytest.approx(1000.0)
     assert ph["phase_share_of_step"] == pytest.approx(0.9)
-    assert P.step_phases(Record(0.0, 10.0, 20.0), SPANS) == {}
+    assert M.step_phases(Record(0.0, 10.0, 20.0), SPANS) == {}
 
 
 def test_queue_wait_over_window_requests_admitted_in_it():
-    m = lambda s, a: SimpleNamespace(submit_t=s, admitted_t=a)  # noqa
-    got = P.queue_wait_ms(rec_steps(), [
-        m(9.0, 11.0),        # submitted before the window: out
-        m(11.0, 11.05),      # 50 ms
-        m(12.0, 12.15),      # 150 ms
-        m(18.0, 21.0),       # admitted after the close: out
-        m(19.0, None),       # still waiting: out
+    got = M.queue_wait_ms(rec_steps(), [
+        (9.0, 11.0),         # submitted before the window: out
+        (11.0, 11.05),       # 50 ms
+        (12.0, 12.15),       # 150 ms
+        (18.0, 21.0),        # admitted after the close: out
+        (19.0, None),        # still waiting: out
     ])
     assert got == pytest.approx(100.0)
-    assert P.queue_wait_ms(rec_steps(), []) is None
+    assert M.queue_wait_ms(rec_steps(), []) is None
 
 
 def test_counters_and_spans_per_window():
     counts = {"host_sync": 10, "load.bytes": 3_000_000_000}
-    assert P.host_syncs_per_step(rec_steps(), counts) == pytest.approx(5.0)
-    assert P.load_copy_gbps(SPANS, counts) == pytest.approx(3.0)
-    assert P.load_copy_gbps(SPANS[:3], counts) is None
+    assert M.host_syncs_per_step(rec_steps(), counts) == pytest.approx(5.0)
+    assert M.load_copy_gbps(SPANS, counts) == pytest.approx(3.0)
+    assert M.load_copy_gbps(SPANS[:3], counts) is None
     assert P.mean_span_s(SPANS, "load.copy") == pytest.approx(0.5)
     assert P.mean_span_s(SPANS, "engine.build") is None
     assert P.step_idle_share({"idle_gaps": [["runner.forward", 3.0],
@@ -84,6 +83,9 @@ def test_breakdown_labels_a_gap_by_the_phase_inside_the_step():
     gaps = dict(breakdown(rec)["idle_gaps"])
     assert gaps == pytest.approx({"engine.schedule": 0.2,
                                   "runner.forward": 0.2, "step": 0.02})
+    # a traced run keeps the port's spans apart: the same labels
+    rec.port_spans, rec.spans = rec.spans[1:], rec.spans[:1]
+    assert dict(breakdown(rec)["idle_gaps"]) == pytest.approx(gaps)
 
 
 @pytest.mark.parametrize("cell", ["tiny-dense.tiny-chat",
